@@ -1,7 +1,7 @@
-"""Example: thousands of parallel tracking scenarios on one chip
-(BASELINE config 4) through the batch-first fused kernel.
+"""Example: thousands of parallel tracking scenarios on one device
+(BASELINE config 4), the batch a grid axis of the rollout kernel.
 
-    python examples/multi_scenario.py [B] [K] [steps]
+    python examples/multi_scenario.py [B] [K] [steps] [xla|pallas]
 """
 
 import os
@@ -15,13 +15,14 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-import mppi_robotarm_tpu as m
+import mppi_robotarm as m
 
 
 def main():
     b = int(sys.argv[1]) if len(sys.argv) > 1 else 1024
     k = int(sys.argv[2]) if len(sys.argv) > 2 else 1024
     steps = int(sys.argv[3]) if len(sys.argv) > 3 else 30
+    backend = sys.argv[4] if len(sys.argv) > 4 else "pallas"
 
     arm, cfg, sim = m.circle_tracking_preset()
     cfg = dataclasses.replace(cfg, num_samples=k)
@@ -32,9 +33,6 @@ def main():
           + 0.02 * jax.random.normal(jax.random.PRNGKey(1), (b, 2)))
     states = m.init_sim_batch(cfg, sim, keys, q0=q0)
 
-    # the fused pallas backend needs the hardware PRNG (TPU only); the
-    # portable XLA path runs the same scenarios anywhere else
-    backend = "pallas" if jax.devices()[0].platform == "tpu" else "xla"
     final, rec = m.simulate_batch(arm, cfg, sim, ref, states, steps,
                                   backend=backend)
     jax.block_until_ready(rec.q)

@@ -5,8 +5,8 @@
 This is what a user of junofficial/mppi_RobotArm writes after switching —
 the same host-side closed loop as run.py:48-71 (plant Euler at dt=0.003,
 record arrays, Figure-1/2 at the end), with ONLY the imports changed to
-``mppi_robotarm_tpu.compat``.  The MPPI solve inside
-``calc_control_input`` runs on the TPU/XLA backend instead of the
+``mppi_robotarm.compat``.  The MPPI solve inside
+``calc_control_input`` runs as one compiled XLA program instead of the
 reference's Python triple loop.
 
 For production use prefer the framework-native drivers (``m.simulate`` /
@@ -22,7 +22,7 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 import numpy as np
 
 # the reference's imports, redirected — this is the only change
-from mppi_robotarm_tpu.compat import (
+from mppi_robotarm.compat import (
     MPPIControllerForPathTracking,
     Arm_Dynamic,
     Forward_Kinemetic,
@@ -44,7 +44,7 @@ def main():
     if os.path.exists(ref_file):
         ref_path = np.loadtxt(ref_file)[:, 0:4]
     else:
-        from mppi_robotarm_tpu.sim.paths import synth_circle_path
+        from mppi_robotarm.sim.paths import synth_circle_path
         ref_path = synth_circle_path(2000)
 
     # run.py:25-37 — the exact reference configuration

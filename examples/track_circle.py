@@ -1,4 +1,4 @@
-"""Example: closed-loop circle tracking — the reference run.py, TPU-native.
+"""Example: closed-loop circle tracking — the reference run.py, compiled.
 
     python examples/track_circle.py [steps] [backend]
 
@@ -16,7 +16,7 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-import mppi_robotarm_tpu as m
+import mppi_robotarm as m
 
 
 def main():
@@ -33,11 +33,11 @@ def main():
                             backend=backend)
     jax.block_until_ready(rec.q)
 
-    from mppi_robotarm_tpu.utils.metrics import tracking_errors
+    from mppi_robotarm.utils.metrics import tracking_errors
     errs = tracking_errors(np.asarray(rec.ee), ref[1:steps + 1, 0:2])
     print({k: round(v * 1e3, 3) for k, v in errs.items()}, "(mm)")
 
-    from mppi_robotarm_tpu.utils.plotting import plot_results
+    from mppi_robotarm.utils.plotting import plot_results
     fig1, fig2 = plot_results(rec, ref)
     out = os.path.dirname(os.path.abspath(__file__))
     fig1.savefig(os.path.join(out, "tracking.png"), dpi=130)

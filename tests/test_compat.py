@@ -8,7 +8,7 @@ tests pin every symbol against the validated oracle implementations.
 import numpy as np
 import pytest
 
-from mppi_robotarm_tpu.compat import (
+from mppi_robotarm.compat import (
     SYS_PARAMS,
     Arm_Dynamic,
     Controller,

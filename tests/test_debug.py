@@ -7,14 +7,9 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from mppi_robotarm_tpu.config import ArmParams, MPPIConfig
-from mppi_robotarm_tpu.mppi.solver import MPPIState, init_state
-from mppi_robotarm_tpu.ops.waypoint import slice_window
-from mppi_robotarm_tpu.utils.debug import (
-    checked_solve,
-    debug_mode,
-    kernel_race_check,
-)
+from mppi_robotarm.config import ArmParams, MPPIConfig
+from mppi_robotarm.mppi.solver import MPPIState, init_state
+from mppi_robotarm.utils.debug import checked_solve, debug_mode
 
 ARM = ArmParams()
 CFG = MPPIConfig()
@@ -55,19 +50,18 @@ def test_debug_mode_restores_flags():
     assert (jax.config.jax_debug_nans, jax.config.jax_enable_checks) == before
 
 
-def test_kernel_race_detector_clean(ref_path, rng):
-    """The fused kernel's cross-tile accumulator discipline passes the
-    Mosaic interpreter's race detector (multi-tile grid)."""
+def test_checked_solve_pallas_backend(ref_path, rng):
+    """checked_solve passes its keywords through: the kernel backend is
+    checked the same way (finite controls, no path end)."""
     cfg = dataclasses.replace(CFG, num_samples=256, horizon=4)
     eps = (rng.normal(size=(256, 4, 2)) * 4.0).astype(np.float32)
-    u = jnp.tile(jnp.asarray(cfg.warm_start, jnp.float32), (4, 1))
-    window, valid = slice_window(jnp.asarray(ref_path, jnp.float32), 0,
-                                 cfg.search_idx_len)
-    nvalid = jnp.sum(valid.astype(jnp.float32))
-    w_eps, s, _ = kernel_race_check(ARM, cfg, jnp.asarray(X0, jnp.float32),
-                                    u, window, nvalid, jnp.asarray(eps))
-    assert np.all(np.isfinite(np.asarray(w_eps)))
-    assert np.all(np.isfinite(np.asarray(s)))
+    err, res = checked_solve(ARM, cfg, jnp.asarray(ref_path, jnp.float32),
+                             jnp.asarray(X0, jnp.float32),
+                             init_state(cfg, dtype=jnp.float32),
+                             eps=jnp.asarray(eps), backend="pallas")
+    err.throw()
+    assert np.all(np.isfinite(np.asarray(res.u0)))
+    assert np.all(np.isfinite(np.asarray(res.costs)))
 
 
 def test_fault_injection_checkpoint_recovery(ref_path, tmp_path):
@@ -76,11 +70,11 @@ def test_fault_injection_checkpoint_recovery(ref_path, tmp_path):
     finish bitwise-identically to an uninterrupted run."""
     import dataclasses
     import jax.numpy as jnp
-    from mppi_robotarm_tpu.config import MPPIConfig, SimConfig
-    from mppi_robotarm_tpu.sim.loop import init_sim, simulate
-    from mppi_robotarm_tpu.utils.checkpoint import (load_checkpoint,
+    from mppi_robotarm.config import MPPIConfig, SimConfig
+    from mppi_robotarm.sim.loop import init_sim, simulate
+    from mppi_robotarm.utils.checkpoint import (load_checkpoint,
                                                     save_checkpoint)
-    from mppi_robotarm_tpu.utils.metrics import nan_guard
+    from mppi_robotarm.utils.metrics import nan_guard
 
     cfg = dataclasses.replace(MPPIConfig(), num_samples=32, horizon=6)
     sim = SimConfig()

@@ -7,7 +7,7 @@ import jax.numpy as jnp
 import pytest
 from scipy.ndimage import median_filter
 
-from mppi_robotarm_tpu.ops.filters import (
+from mppi_robotarm.ops.filters import (
     median_filter_reflect,
     moving_average_filter,
 )

@@ -21,8 +21,8 @@ shift-before-return semantics — the multi-step closed-loop replay
 import numpy as np
 import jax.numpy as jnp
 
-from mppi_robotarm_tpu.config import ArmParams, MPPIConfig
-from mppi_robotarm_tpu.mppi.solver import init_state, solve
+from mppi_robotarm.config import ArmParams, MPPIConfig
+from mppi_robotarm.mppi.solver import init_state, solve
 from oracle import OracleMPPI
 
 GOLDEN_U0 = np.array([9.63530396460894, -3.481657264286825])
@@ -51,7 +51,7 @@ def test_jax_solver_reproduces_reference_golden(ref_path):
 
 
 def test_jax_solver_f32_within_gate(ref_path):
-    """float32 (TPU) reproduces the reference golden within the 1e-3 gate."""
+    """float32 reproduces the reference golden within the 1e-3 gate."""
     eps = _seeded_reference_noise()
     res = solve(ArmParams(), MPPIConfig(), jnp.asarray(ref_path, jnp.float32),
                 jnp.asarray(X0, jnp.float32), init_state(MPPIConfig()),

@@ -1,4 +1,8 @@
-"""Fused Pallas solve kernel vs the XLA path (interpret mode on CPU)."""
+"""Pallas rollout kernel (ops/pallas_rollout.py) vs the XLA rollout.
+
+On the CPU the kernel runs in interpret mode (conftest.py); the ``gpu``
+tests run it compiled, on the card, through ``chip_smoke.py``.
+"""
 
 import dataclasses
 
@@ -7,525 +11,254 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from mppi_robotarm_tpu.config import ArmParams, MPPIConfig
-from mppi_robotarm_tpu.ops.noise import sigma_inverse
-from mppi_robotarm_tpu.ops.pallas_rollout import pallas_solve_core
-from mppi_robotarm_tpu.ops.rollout import rollout_costs
-from mppi_robotarm_tpu.ops.waypoint import slice_window
-from mppi_robotarm_tpu.ops.weights import mppi_weights
+from mppi_robotarm.config import ArmParams, MPPIConfig
+from mppi_robotarm.mppi.solver import init_state, solve
+from mppi_robotarm.ops.noise import sigma_inverse
+from mppi_robotarm.ops.pallas_rollout import block_k, rollout_costs_pallas
+from mppi_robotarm.ops.rollout import rollout_costs
+from mppi_robotarm.ops.waypoint import slice_window
+from mppi_robotarm.sim.paths import synth_circle_path
 
 ARM = ArmParams()
 X0 = np.array([1.152198236517471885, -1.266101672070702344, 0.0, 0.0],
               np.float32)
+F32 = jnp.float32
 
 
-def _xla_reference(cfg, ref_path, x0, u, eps, wp_idx=0):
-    window, valid = slice_window(jnp.asarray(ref_path, jnp.float32), wp_idx,
-                                 cfg.search_idx_len)
-    s, _ = rollout_costs(ARM, cfg, jnp.asarray(x0), jnp.asarray(u),
-                         jnp.asarray(eps), window, valid,
-                         jnp.asarray(sigma_inverse(cfg.sigma), jnp.float32))
-    w = mppi_weights(s, cfg.lam)
-    w_eps = jnp.einsum("k,ktu->tu", w, jnp.asarray(eps))
-    return np.asarray(s), np.asarray(w_eps), window, valid
-
-
-@pytest.mark.parametrize("k,t", [(128, 6), (256, 30)])
-def test_injected_eps_matches_xla(ref_path, rng, k, t):
-    cfg = dataclasses.replace(MPPIConfig(), num_samples=k, horizon=t)
-    u = np.tile(np.asarray(cfg.warm_start, np.float32), (t, 1))
-    eps = (rng.normal(size=(k, t, 2)) * np.sqrt(20.0)).astype(np.float32)
-    s_exp, weps_exp, window, valid = _xla_reference(cfg, ref_path, X0, u, eps)
-    nvalid = jnp.asarray(np.float32(valid.sum()))
-    w_eps, s, eps_used = pallas_solve_core(
-        ARM, cfg, jnp.asarray(X0), jnp.asarray(u), window, nvalid,
-        eps=jnp.asarray(eps), interpret=True)
-    np.testing.assert_array_equal(np.asarray(eps_used), eps)
-    np.testing.assert_allclose(np.asarray(s), s_exp, rtol=2e-5)
-    np.testing.assert_allclose(np.asarray(w_eps), weps_exp, rtol=1e-3,
-                               atol=1e-4)
-
-
-def test_multi_tile_online_softmax(ref_path, rng):
-    """K spanning several grid tiles exercises the running-min rescale."""
-    cfg = dataclasses.replace(MPPIConfig(), num_samples=512, horizon=4)
+def _inputs(cfg, rng, start=0, path=None):
+    path = synth_circle_path(400) if path is None else path
     t = cfg.horizon
-    u = np.tile(np.asarray(cfg.warm_start, np.float32), (t, 1))
-    eps = rng.normal(size=(cfg.num_samples, t, 2)).astype(np.float32) * 4.0
-    s_exp, weps_exp, window, valid = _xla_reference(cfg, ref_path, X0, u, eps)
-    nvalid = jnp.asarray(np.float32(valid.sum()))
-    w_eps, s, _ = pallas_solve_core(
-        ARM, cfg, jnp.asarray(X0), jnp.asarray(u), window, nvalid,
-        eps=jnp.asarray(eps), interpret=True, tile=128)
-    np.testing.assert_allclose(np.asarray(s), s_exp, rtol=2e-5)
-    np.testing.assert_allclose(np.asarray(w_eps), weps_exp, rtol=1e-3,
-                               atol=1e-4)
+    u = (np.tile(np.asarray(cfg.warm_start, np.float32), (t, 1))
+         + rng.normal(size=(t, 2)).astype(np.float32))
+    eps = (rng.normal(size=(cfg.num_samples, t, 2))
+           * np.sqrt(20.0)).astype(np.float32)
+    window, valid = slice_window(jnp.asarray(path, F32), start,
+                                 cfg.search_idx_len)
+    sinv = jnp.asarray(sigma_inverse(cfg.sigma), F32)
+    return jnp.asarray(u), jnp.asarray(eps), window, valid, sinv
 
 
-def test_exploration_split_in_kernel(ref_path, rng):
-    cfg = dataclasses.replace(MPPIConfig(), num_samples=128, horizon=5,
+def _both(cfg, x0, u, eps, window, valid, sinv, k_offset=0):
+    s_ref, _ = rollout_costs(ARM, cfg, x0, u, eps, window, valid, sinv,
+                             k_offset=k_offset)
+    s = rollout_costs_pallas(ARM, cfg, x0, u, eps, window, valid, sinv,
+                             k_offset=k_offset)
+    return np.asarray(s), np.asarray(s_ref)
+
+
+# (K, H, W, exploration, u_clamp, window start): every K in {1, 100, 128,
+# 1000, 1024}, every H in {1, 6, 30, 50}, every W in {1, 30, 80}, the
+# exploration split and the clamp on and off, K both a multiple of the
+# block and not, and windows truncated at the path end (start 396 of 400).
+KERNEL_CASES = [
+    (1, 1, 1, 0.0, None, 0),
+    (1, 6, 30, 0.0, 0.8, 396),
+    (100, 1, 30, 0.0, None, 0),
+    (100, 6, 30, 0.3, None, 0),
+    (100, 30, 80, 0.0, 0.8, 396),
+    (100, 50, 1, 0.5, None, 10),
+    (128, 1, 80, 0.0, None, 0),
+    (128, 6, 1, 0.0, 0.8, 0),
+    (128, 30, 30, 0.2, None, 396),
+    (128, 50, 30, 0.0, None, 0),
+    (1000, 1, 30, 0.1, 0.8, 0),
+    (1000, 6, 80, 0.0, None, 396),
+    (1000, 30, 30, 0.0, None, 50),
+    (1000, 50, 1, 0.0, 0.8, 0),
+    (1024, 1, 1, 0.0, None, 396),
+    (1024, 6, 30, 0.5, 0.8, 0),
+    (1024, 30, 80, 0.0, None, 0),
+    (1024, 50, 30, 0.0, None, 0),
+]
+
+
+@pytest.mark.parametrize("k,h,w,expl,clamp,start", KERNEL_CASES)
+def test_kernel_matches_rollout_costs(rng, k, h, w, expl, clamp, start):
+    cfg = dataclasses.replace(MPPIConfig(), num_samples=k, horizon=h,
+                              search_idx_len=w, exploration=expl,
+                              u_clamp=clamp)
+    u, eps, window, valid, sinv = _inputs(cfg, rng, start)
+    s, s_ref = _both(cfg, jnp.asarray(X0), u, eps, window, valid, sinv)
+    assert s.shape == (k,) and s.dtype == np.float32
+    # same float32 arithmetic in another order (FMA contraction, the
+    # scan-free loop): a few ulp of S, never a different waypoint
+    np.testing.assert_allclose(s, s_ref, rtol=2e-5)
+
+
+@pytest.mark.parametrize("k_offset", [0, 64, 192])
+def test_kernel_exploration_split_uses_global_index(rng, k_offset):
+    """Q9 under sample sharding: the exploit cutoff counts from k_offset."""
+    cfg = dataclasses.replace(MPPIConfig(), num_samples=256, horizon=5,
                               exploration=0.5)
-    t = cfg.horizon
-    u = np.tile(np.asarray(cfg.warm_start, np.float32), (t, 1))
-    eps = rng.normal(size=(128, t, 2)).astype(np.float32) * 4.0
-    s_exp, weps_exp, window, valid = _xla_reference(cfg, ref_path, X0, u, eps)
-    nvalid = jnp.asarray(np.float32(valid.sum()))
-    _, s, _ = pallas_solve_core(ARM, cfg, jnp.asarray(X0), jnp.asarray(u),
-                                window, nvalid, eps=jnp.asarray(eps),
-                                interpret=True)
-    np.testing.assert_allclose(np.asarray(s), s_exp, rtol=2e-5)
+    u, eps, window, valid, sinv = _inputs(cfg, rng)
+    eps = eps[:64]
+    s, s_ref = _both(cfg, jnp.asarray(X0), u, eps, window, valid, sinv,
+                     k_offset=k_offset)
+    np.testing.assert_allclose(s, s_ref, rtol=2e-5)
 
 
-@pytest.mark.skipif(
-    jax.devices()[0].platform not in ("tpu",),
-    reason="hardware PRNG: the CPU TPU-interpreter stubs prng_random_bits "
-           "to zeros; validated on-chip by tools/tpu_validate.py",
-)
-def test_prng_mode_statistics_and_determinism(ref_path):
-    """On-chip PRNG: same seed → identical output; noise has ~N(0, Σ) stats."""
-    cfg = dataclasses.replace(MPPIConfig(), num_samples=1024, horizon=4)
-    t = cfg.horizon
-    u = jnp.tile(jnp.asarray(cfg.warm_start, jnp.float32), (t, 1))
-    window, valid = slice_window(jnp.asarray(ref_path, jnp.float32), 0,
-                                 cfg.search_idx_len)
-    nvalid = jnp.asarray(np.float32(np.asarray(valid).sum()))
-    w1, s1, e1 = pallas_solve_core(ARM, cfg, jnp.asarray(X0), u, window,
-                                   nvalid, seed=jnp.asarray(7, jnp.int32),
-                                   interpret=False)
-    w2, s2, e2 = pallas_solve_core(ARM, cfg, jnp.asarray(X0), u, window,
-                                   nvalid, seed=jnp.asarray(7, jnp.int32),
-                                   interpret=False)
-    np.testing.assert_array_equal(np.asarray(e1), np.asarray(e2))
-    np.testing.assert_array_equal(np.asarray(s1), np.asarray(s2))
-    e = np.asarray(e1).reshape(-1, 2)
-    assert abs(e.mean()) < 0.2, e.mean()
-    np.testing.assert_allclose(e.std(axis=0), np.sqrt(20.0), rtol=0.05)
-    # different seed → different noise
-    _, _, e3 = pallas_solve_core(ARM, cfg, jnp.asarray(X0), u, window,
-                                 nvalid, seed=jnp.asarray(8, jnp.int32),
-                                 interpret=False)
-    assert not np.allclose(np.asarray(e3), np.asarray(e1))
-
-
-def test_mode_validation(ref_path):
-    cfg = dataclasses.replace(MPPIConfig(), num_samples=128, horizon=4)
-    window, valid = slice_window(jnp.asarray(ref_path, jnp.float32), 0, 30)
-    with pytest.raises(ValueError, match="exactly one"):
-        pallas_solve_core(ARM, cfg, jnp.asarray(X0),
-                          jnp.zeros((4, 2), jnp.float32), window,
-                          jnp.asarray(30.0), interpret=True)
-
-
-def test_batched_kernel_matches_per_scenario(ref_path, rng):
-    """pallas_solve_batched (grid B × tiles) == per-scenario single calls."""
-    from mppi_robotarm_tpu.ops.pallas_rollout import pallas_solve_batched
-
-    cfg = dataclasses.replace(MPPIConfig(), num_samples=256, horizon=5)
+def test_vmapped_kernel_matches_per_scenario(rng):
+    """vmap adds a grid axis; each scenario equals its own launch."""
+    cfg = dataclasses.replace(MPPIConfig(), num_samples=100, horizon=5)
     b = 3
-    x0s = np.tile(X0, (b, 1)) + rng.normal(scale=0.01, size=(b, 4)).astype(
-        np.float32)
-    us = np.tile(np.asarray(cfg.warm_start, np.float32), (b, cfg.horizon, 1))
-    eps = rng.normal(size=(b, 256, cfg.horizon, 2)).astype(np.float32) * 4.0
-    window, valid = slice_window(jnp.asarray(ref_path, jnp.float32), 0,
-                                 cfg.search_idx_len)
-    windows = jnp.tile(window[None], (b, 1, 1))
-    nvalid = jnp.full((b,), np.float32(np.asarray(valid).sum()))
-
-    w_b, s_b, e_b, _ = pallas_solve_batched(
-        ARM, cfg, jnp.asarray(x0s, jnp.float32), jnp.asarray(us),
-        windows, nvalid, eps=jnp.asarray(eps), interpret=True, tile=128)
+    x0s = jnp.asarray(np.tile(X0, (b, 1))
+                      + rng.normal(scale=0.01, size=(b, 4)), F32)
+    u, _, window, valid, sinv = _inputs(cfg, rng)
+    eps = jnp.asarray(rng.normal(size=(b, 100, 5, 2)) * 4.0, F32)
+    starts = [0, 40, 396]
+    wins = [slice_window(jnp.asarray(synth_circle_path(400), F32), s, 30)
+            for s in starts]
+    windows = jnp.stack([w for w, _ in wins])
+    valids = jnp.stack([v for _, v in wins])
+    sb = jax.vmap(lambda x, e, w, v: rollout_costs_pallas(
+        ARM, cfg, x, u, e, w, v, sinv))(x0s, eps, windows, valids)
     for i in range(b):
-        w_i, s_i, e_i = pallas_solve_core(
-            ARM, cfg, jnp.asarray(x0s[i], jnp.float32), jnp.asarray(us[i]),
-            window, nvalid[i], eps=jnp.asarray(eps[i]), interpret=True,
-            tile=128)
-        np.testing.assert_array_equal(np.asarray(s_b[i]), np.asarray(s_i))
-        np.testing.assert_array_equal(np.asarray(w_b[i]), np.asarray(w_i))
-        np.testing.assert_array_equal(np.asarray(e_b[i]), np.asarray(e_i))
+        si = rollout_costs_pallas(ARM, cfg, x0s[i], u, eps[i], windows[i],
+                                  valids[i], sinv)
+        np.testing.assert_array_equal(np.asarray(sb[i]), np.asarray(si))
 
 
-def test_mosaic_lowering_aot(ref_path):
-    """AOT cross-lowering for platform 'tpu' runs the full Mosaic pipeline on
-    CPU — catches tiling/lowering violations without a chip.  (x64 disabled:
-    jax.export recurses on weak int64 scalars under jax_enable_x64.)"""
-    import mppi_robotarm_tpu as m
-    from mppi_robotarm_tpu.config import SimConfig
-    from mppi_robotarm_tpu.ops.pallas_rollout import pallas_solve_batched
-    jax.config.update("jax_enable_x64", False)
-    try:
-        _mosaic_lowering_body(m, SimConfig, pallas_solve_batched, ref_path)
-    finally:
-        jax.config.update("jax_enable_x64", True)
+@pytest.mark.parametrize("k", [1, 31, 32, 100, 1024, 4224, 8448, 65536])
+def test_block_k_picker(k):
+    """A power of two in [32, 128]; small K spreads over many programs."""
+    b = block_k(k)
+    assert b & (b - 1) == 0 and 32 <= b <= 128
+    n_programs = -(-k // b)
+    if b > 32:
+        # only grown once every one of the 132 SMs gets a program anyway
+        assert n_programs >= 132 // 2
+    assert block_k(2 * k) >= b
 
 
-def _mosaic_lowering_body(m, SimConfig, pallas_solve_batched, ref_path):
-    cfg = dataclasses.replace(MPPIConfig(), num_samples=128, horizon=6)
-    sim = SimConfig()
-    ref = jnp.asarray(ref_path[:300], jnp.float32)
-    window, _ = slice_window(ref, 0, cfg.search_idx_len)
-    b = 2
-    f = lambda x0, u, w, nv, s: pallas_solve_batched(
-        ARM, cfg, x0, u, w, nv, seed=s)
-    args = (jnp.zeros((b, 4)), jnp.zeros((b, 6, 2)),
-            jnp.tile(window[None], (b, 1, 1)), jnp.full((b,), 30.0),
-            jnp.zeros((b,), jnp.int32))
-    jax.export.export(jax.jit(f), platforms=["tpu"])(*args)
-
-    s1 = m.init_sim(cfg, sim, jax.random.PRNGKey(0))
-    h = lambda s: m.simulate(ARM, cfg, sim, ref, s, 2, backend="pallas")
-    jax.export.export(jax.jit(h), platforms=["tpu"])(s1)
-
-
-def test_non_lane_multiple_k_padding(ref_path, rng):
-    """K=100 (the reference config) pads to 128 with exact-no-op samples."""
-    cfg = dataclasses.replace(MPPIConfig(), num_samples=100, horizon=6)
-    u = np.tile(np.asarray(cfg.warm_start, np.float32), (6, 1))
-    eps = rng.normal(size=(100, 6, 2)).astype(np.float32) * 4.0
-    s_exp, weps_exp, window, valid = _xla_reference(cfg, ref_path, X0, u, eps)
-    nvalid = jnp.asarray(np.float32(valid.sum()))
-    w_eps, s, eps_used = pallas_solve_core(
-        ARM, cfg, jnp.asarray(X0), jnp.asarray(u), window, nvalid,
-        eps=jnp.asarray(eps), interpret=True)
-    assert s.shape == (100,) and eps_used.shape == (100, 6, 2)
-    np.testing.assert_array_equal(np.asarray(eps_used), eps)
-    np.testing.assert_allclose(np.asarray(s), s_exp, rtol=2e-5)
-    np.testing.assert_allclose(np.asarray(w_eps), weps_exp, rtol=1e-3,
-                               atol=1e-4)
+@pytest.mark.parametrize("k", [1, 33, 100, 129])
+def test_padding_lanes_are_inert(rng, k):
+    """K that is not a multiple of the block pads with zero noise; the pad
+    lanes are dropped and cannot change the real ones."""
+    cfg = dataclasses.replace(MPPIConfig(), num_samples=k, horizon=4)
+    u, eps, window, valid, sinv = _inputs(cfg, rng)
+    assert k % block_k(k)
+    s = rollout_costs_pallas(ARM, cfg, jnp.asarray(X0), u, eps, window,
+                             valid, sinv)
+    # the same samples inside a larger, block-aligned K give the same S
+    cfg_big = dataclasses.replace(cfg, num_samples=256)
+    big = jnp.concatenate(
+        [eps, jnp.asarray(rng.normal(size=(256 - k, 4, 2)), F32)])
+    s_big = rollout_costs_pallas(ARM, cfg_big, jnp.asarray(X0), u, big,
+                                 window, valid, sinv)
+    assert s.shape == (k,)
+    np.testing.assert_array_equal(np.asarray(s), np.asarray(s_big)[:k])
 
 
-def test_fuse_update_matches_separate_median(ref_path, rng):
-    """In-kernel median+update == XLA median_filter + add (bit-level: both
-    use exact min/max comparisons)."""
-    from mppi_robotarm_tpu.ops.filters import median_filter_reflect
-    from mppi_robotarm_tpu.ops.pallas_rollout import pallas_solve_batched
-
-    cfg = dataclasses.replace(MPPIConfig(), num_samples=256, horizon=12)
-    t = cfg.horizon
-    u = np.tile(np.asarray(cfg.warm_start, np.float32), (t, 1))
-    eps = rng.normal(size=(1, 256, t, 2)).astype(np.float32) * 4.0
-    window, valid = slice_window(jnp.asarray(ref_path, jnp.float32), 0,
-                                 cfg.search_idx_len)
-    nvalid = jnp.full((1,), np.float32(valid.sum()))
-
-    w_raw, s1, _, _ = pallas_solve_batched(
-        ARM, cfg, jnp.asarray(X0[None], jnp.float32), jnp.asarray(u[None]),
-        window[None], nvalid, eps=jnp.asarray(eps), interpret=True)
-    expected = u + np.asarray(
-        median_filter_reflect(w_raw[0], cfg.filter_window))
-
-    u_new, s2, _, _ = pallas_solve_batched(
-        ARM, cfg, jnp.asarray(X0[None], jnp.float32), jnp.asarray(u[None]),
-        window[None], nvalid, eps=jnp.asarray(eps), interpret=True,
-        fuse_update=True)
-    np.testing.assert_allclose(np.asarray(u_new[0]), expected, rtol=1e-6,
-                               atol=1e-7)
-    np.testing.assert_array_equal(np.asarray(s1), np.asarray(s2))
-
-
-def test_fuse_update_validation(ref_path):
-    from mppi_robotarm_tpu.ops.pallas_rollout import pallas_solve_batched
-    cfg = dataclasses.replace(MPPIConfig(), num_samples=128, horizon=4)
-    window, _ = slice_window(jnp.asarray(ref_path, jnp.float32), 0, 30)
-    with pytest.raises(ValueError, match="fuse_update"):
-        pallas_solve_batched(
-            ARM, cfg, jnp.zeros((1, 4)), jnp.zeros((1, 4, 2)), window[None],
-            jnp.full((1,), 30.0), seed=jnp.zeros((1,), jnp.int32),
-            fuse_update=True, normalize=False, interpret=True)
-
-
-def test_tile_respects_vmem_budget():
-    from mppi_robotarm_tpu.ops.pallas_rollout import _pick_tile
-    # default horizon: whole-K tiles up to 8192
-    assert _pick_tile(1024, 50) == 1024
-    assert _pick_tile(8192, 50) == 8192
-    assert _pick_tile(65536, 50) == 8192
-    # long horizons shrink the tile so 3x the noise buffer fits in ~10MB
-    t = _pick_tile(8192, 200)
-    assert t < 8192 and 3 * 2 * 200 * (t // 128) * 128 * 4 <= (10 << 20)
-    assert 8192 % t == 0
-
-
-@pytest.mark.skipif(
-    jax.devices()[0].platform not in ("tpu",),
-    reason="hardware PRNG: the CPU TPU-interpreter stubs prng_random_bits "
-           "to zeros; run on-chip (tools/run_battery.sh)",
-)
-def test_seed_space_beyond_24_bits(ref_path):
-    """Seeds above 2^24 must produce distinct noise streams — the seed is an
-    int32 SMEM operand; a float32 round-trip would alias nearby seeds."""
-    from mppi_robotarm_tpu.ops.waypoint import slice_window
-    cfg = dataclasses.replace(MPPIConfig(), num_samples=128, horizon=4)
-    window, _ = slice_window(jnp.asarray(ref_path, jnp.float32), 0, 30)
-    u = jnp.tile(jnp.asarray(cfg.warm_start, jnp.float32), (4, 1))
-    nv = jnp.float32(30.0)
-    x0 = jnp.asarray(X0, jnp.float32)
-    outs = []
-    # adjacent seeds just past 2^24 alias to the same float32 value
-    for seed in (2 ** 24 + 1, 2 ** 24 + 2):
-        _, s, _ = pallas_solve_core(
-            ARM, cfg, x0, u, window, nv,
-            seed=jnp.asarray(seed, jnp.int32), interpret=False)
-        outs.append(np.asarray(s))
-    assert not np.array_equal(outs[0], outs[1]), (
-        "seeds 2^24+1 and 2^24+2 produced identical noise — seed space "
-        "collapsed (float32 smuggling regression)")
-
-
-@pytest.mark.parametrize("k,t", [(128, 6), (256, 17)])
-def test_unroll_variants_equal(ref_path, rng, k, t):
-    """Tree-unrolled window argmin (log-depth tournament, keep-left ties)
-    select the same waypoints as the rolled linear scan.  Equality is
-    near-ulp rather than bitwise: XLA's FMA-contraction choices differ
-    between the two expression structures (and across the ``unroll_t``
-    horizon-loop variants), which can flip a marginal tie or perturb the
-    chaotic rollout at ulp level — benign, and the semantically meaningful
-    parity (kernel vs XLA path vs float64 oracle vs the executed reference)
-    is gated bitwise/tight elsewhere in this file and in
-    test_golden_reference.py."""
-    cfg = dataclasses.replace(MPPIConfig(), num_samples=k, horizon=t)
-    u = np.tile(np.asarray(cfg.warm_start, np.float32), (t, 1))
-    eps = (rng.normal(size=(k, t, 2)) * np.sqrt(20.0)).astype(np.float32)
-    window, valid = slice_window(jnp.asarray(ref_path, jnp.float32), 0,
-                                 cfg.search_idx_len)
-    nvalid = jnp.asarray(np.float32(np.asarray(valid).sum()))
-
-    def run(unroll_t, unroll_w):
-        w_eps, s, _ = pallas_solve_core(
-            ARM, cfg, jnp.asarray(X0), jnp.asarray(u), window, nvalid,
-            eps=jnp.asarray(eps), interpret=True,
-            unroll_t=unroll_t, unroll_w=unroll_w)
-        return np.asarray(w_eps), np.asarray(s)
-
-    for unroll_t in (False, True):
-        rolled = run(unroll_t, False)
-        tree = run(unroll_t, True)
-        np.testing.assert_allclose(tree[1], rolled[1], rtol=3e-7)
-        np.testing.assert_allclose(tree[0], rolled[0], rtol=3e-7, atol=1e-6)
-    # across the horizon-unroll axis the chaotic rollout amplifies the
-    # contraction differences further: tight but looser than ulp
-    np.testing.assert_allclose(run(True, True)[1], run(False, True)[1],
-                               rtol=1e-5, atol=5e-2)
-
-
-def test_unroll_variants_truncated_window(ref_path, rng):
-    """Same equivalence when the window is truncated at the path end
-    (nvalid < W) — exercises the invalid-row +inf masking in both argmin
-    forms, including the tree's all-invalid fallback handling."""
-    cfg = dataclasses.replace(MPPIConfig(), num_samples=128, horizon=5)
-    t = cfg.horizon
-    u = np.tile(np.asarray(cfg.warm_start, np.float32), (t, 1))
-    eps = (rng.normal(size=(128, t, 2)) * np.sqrt(20.0)).astype(np.float32)
-    n = ref_path.shape[0]
-    window, valid = slice_window(jnp.asarray(ref_path, jnp.float32), n - 4,
-                                 cfg.search_idx_len)
-    nvalid = jnp.asarray(np.float32(np.asarray(valid).sum()))
-    assert float(nvalid) < cfg.search_idx_len
-    outs = []
-    for unroll_w in (False, True):
-        w_eps, s, _ = pallas_solve_core(
-            ARM, cfg, jnp.asarray(X0), jnp.asarray(u), window, nvalid,
-            eps=jnp.asarray(eps), interpret=True, unroll_w=unroll_w)
-        outs.append((np.asarray(w_eps), np.asarray(s)))
-    np.testing.assert_allclose(outs[0][1], outs[1][1], rtol=3e-7)
-    np.testing.assert_allclose(outs[0][0], outs[1][0], rtol=3e-7, atol=1e-6)
-
-
-def test_trig_carry_variants_equal(ref_path, rng):
-    """The angle-difference trig carry (auto-enabled for sub>=32 tiles,
-    tools/tpu_trig_ab.py) matches the direct-transcendental rollout at ulp
-    level: cos/sin(q2) derived from the carried FK trig of q1 and q1+q2
-    differ from the direct expansions only by fp reassociation, amplified
-    through the chaotic rollout — same contract as the unroll variants."""
+@pytest.mark.parametrize("mode", ["key", "eps"])
+def test_solve_backends_agree(ref_path, rng, mode):
+    """solve(backend='pallas') == solve(backend='xla') on the same noise:
+    one key draws identical noise on both."""
     cfg = dataclasses.replace(MPPIConfig(), num_samples=128, horizon=12)
-    t = cfg.horizon
-    u = np.tile(np.asarray(cfg.warm_start, np.float32), (t, 1))
-    eps = (rng.normal(size=(128, t, 2)) * np.sqrt(20.0)).astype(np.float32)
-    window, valid = slice_window(jnp.asarray(ref_path, jnp.float32), 0,
-                                 cfg.search_idx_len)
-    nvalid = jnp.asarray(np.float32(np.asarray(valid).sum()))
-    outs = {}
-    for tc in (False, True):
-        w_eps, s, _ = pallas_solve_core(
-            ARM, cfg, jnp.asarray(X0), jnp.asarray(u), window, nvalid,
-            eps=jnp.asarray(eps), interpret=True, trig_carry=tc)
-        outs[tc] = (np.asarray(w_eps), np.asarray(s))
-    np.testing.assert_allclose(outs[True][1], outs[False][1], rtol=1e-5)
-    np.testing.assert_allclose(outs[True][0], outs[False][0], rtol=1e-4,
-                               atol=1e-5)
+    ref = jnp.asarray(ref_path, F32)
+    state = init_state(cfg, dtype=F32)
+    if mode == "key":
+        kw = dict(key=jax.random.PRNGKey(5))
+    else:
+        kw = dict(eps=jnp.asarray(rng.normal(size=(128, 12, 2)) * 4.0, F32))
+    a = solve(ARM, cfg, ref, jnp.asarray(X0), state, backend="xla", **kw)
+    b = solve(ARM, cfg, ref, jnp.asarray(X0), state, backend="pallas", **kw)
+    np.testing.assert_array_equal(np.asarray(a.eps), np.asarray(b.eps))
+    np.testing.assert_allclose(np.asarray(b.costs), np.asarray(a.costs),
+                               rtol=2e-5)
+    np.testing.assert_allclose(np.asarray(b.u_seq), np.asarray(a.u_seq),
+                               atol=1e-4)
+    assert int(a.state.wp_idx) == int(b.state.wp_idx)
 
 
-def test_fast_select_variants_equal(ref_path, rng):
-    """The reduced waypoint-selection metric (production/PRNG default)
-    selects the same waypoints as the exact metric away from fp near-ties:
-    score_j = −2wx_j·x − 2wy_j·y + (wx_j²+wy_j²) drops the sample-constant
-    x²+y² and the positive dist_scale — both monotone — so the mathematical
-    argmin is unchanged, and the final cost is computed from the selected
-    row's values with the exact formula in both modes."""
-    cfg = dataclasses.replace(MPPIConfig(), num_samples=256, horizon=10)
-    t = cfg.horizon
-    u = np.tile(np.asarray(cfg.warm_start, np.float32), (t, 1))
-    eps = (rng.normal(size=(256, t, 2)) * np.sqrt(20.0)).astype(np.float32)
-    n = ref_path.shape[0]
-    for start in (0, n - 4):             # full + truncated window
-        window, valid = slice_window(jnp.asarray(ref_path, jnp.float32),
-                                     start, cfg.search_idx_len)
-        nvalid = jnp.asarray(np.float32(np.asarray(valid).sum()))
-        outs = {}
-        for fs in (False, True):
-            w_eps, s, _ = pallas_solve_core(
-                ARM, cfg, jnp.asarray(X0), jnp.asarray(u), window, nvalid,
-                eps=jnp.asarray(eps), interpret=True, fast_select=fs)
-            outs[fs] = (np.asarray(w_eps), np.asarray(s))
-        np.testing.assert_allclose(outs[True][1], outs[False][1], rtol=1e-5,
-                                   err_msg=f"S differs at start={start}")
-        np.testing.assert_allclose(outs[True][0], outs[False][0], rtol=1e-4,
-                                   atol=1e-5)
+def test_unknown_backend_raises(ref_path):
+    cfg = dataclasses.replace(MPPIConfig(), num_samples=8, horizon=3)
+    with pytest.raises(ValueError, match="unknown backend"):
+        solve(ARM, cfg, jnp.asarray(ref_path, F32), jnp.asarray(X0),
+              init_state(cfg, dtype=F32), key=jax.random.PRNGKey(0),
+              backend="pallas-fused")
 
 
-def test_packed_select_matches_exact(ref_path, rng):
-    """The packed-argmin tournament (round-5 A/B candidate,
-    tools/tpu_tournament_ab.py) selects the same waypoints as the exact
-    metric away from fp near-ties: the squared distance (dist_scale
-    dropped — positive, monotone) is bitcast to int32 (order-preserving
-    for non-negative f32) with the low 5 mantissa bits replaced by the row
-    index, so ties resolve to the smaller index (first-win) and the
-    comparison is quantised at ~2^-18 relative; the winner's values are
-    reconstructed exactly, and the final cost uses the exact formula."""
-    cfg = dataclasses.replace(MPPIConfig(), num_samples=256, horizon=10)
-    t = cfg.horizon
-    u = np.tile(np.asarray(cfg.warm_start, np.float32), (t, 1))
-    eps = (rng.normal(size=(256, t, 2)) * np.sqrt(20.0)).astype(np.float32)
-    n = ref_path.shape[0]
-    for start in (0, n - 4):             # full + truncated window
-        window, valid = slice_window(jnp.asarray(ref_path, jnp.float32),
-                                     start, cfg.search_idx_len)
-        nvalid = jnp.asarray(np.float32(np.asarray(valid).sum()))
-        outs = {}
-        for packed in (False, True):
-            w_eps, s, _ = pallas_solve_core(
-                ARM, cfg, jnp.asarray(X0), jnp.asarray(u), window, nvalid,
-                eps=jnp.asarray(eps), interpret=True, packed_select=packed)
-            outs[packed] = (np.asarray(w_eps), np.asarray(s))
-        np.testing.assert_allclose(outs[True][1], outs[False][1], rtol=1e-5,
-                                   err_msg=f"S differs at start={start}")
-        np.testing.assert_allclose(outs[True][0], outs[False][0], rtol=1e-4,
-                                   atol=1e-5)
-    with pytest.raises(ValueError, match="unroll_w"):
-        pallas_solve_core(ARM, cfg, jnp.asarray(X0), jnp.asarray(u),
-                          window, nvalid, eps=jnp.asarray(eps),
-                          interpret=True, unroll_w=False, packed_select=True)
-
-
-def test_injected_eps_default_bitwise_at_large_tiles(ref_path, rng):
-    """Injected-eps replays stay BITWISE stable at every tile size under
-    default flags (round-4 advisor): trig_carry's auto-gate used to engage
-    at sub>=32 even in eps mode, so replaying recorded noise at K>=4096
-    silently lost bitwise pallas agreement with smaller-K runs of the same
-    flags.  Default now resolves to use_prng AND sub>=32 — pinned by
-    comparing the default against an explicit trig_carry=False run at a
-    sub=32 tile."""
-    cfg = dataclasses.replace(MPPIConfig(), num_samples=4096, horizon=3)
-    t = cfg.horizon
-    u = np.tile(np.asarray(cfg.warm_start, np.float32), (t, 1))
-    eps = (rng.normal(size=(4096, t, 2)) * np.sqrt(20.0)).astype(np.float32)
-    window, valid = slice_window(jnp.asarray(ref_path, jnp.float32), 0,
-                                 cfg.search_idx_len)
-    nvalid = jnp.asarray(np.float32(np.asarray(valid).sum()))
-    w_d, s_d, _ = pallas_solve_core(
-        ARM, cfg, jnp.asarray(X0), jnp.asarray(u), window, nvalid,
-        eps=jnp.asarray(eps), interpret=True)
-    w_x, s_x, _ = pallas_solve_core(
-        ARM, cfg, jnp.asarray(X0), jnp.asarray(u), window, nvalid,
-        eps=jnp.asarray(eps), interpret=True, trig_carry=False,
-        fast_select=False)
-    np.testing.assert_array_equal(np.asarray(s_d), np.asarray(s_x))
-    np.testing.assert_array_equal(np.asarray(w_d), np.asarray(w_x))
-
-
-def test_fast_select_requires_unrolled_window(ref_path):
-    """Explicit fast_select=True with the rolled window scan is rejected
-    rather than silently falling back to the exact metric (round-4
-    advisor); the None default resolves to the exact metric there."""
-    cfg = dataclasses.replace(MPPIConfig(), num_samples=128, horizon=4)
-    window, valid = slice_window(jnp.asarray(ref_path, jnp.float32), 0, 30)
-    nvalid = jnp.asarray(np.float32(np.asarray(valid).sum()))
-    eps = jnp.zeros((128, 4, 2), jnp.float32)
-    with pytest.raises(ValueError, match="unroll_w"):
-        pallas_solve_core(ARM, cfg, jnp.asarray(X0),
-                          jnp.zeros((4, 2), jnp.float32), window, nvalid,
-                          eps=eps, interpret=True, unroll_w=False,
-                          fast_select=True)
-    # and the default still works rolled (resolves to exact metric)
-    pallas_solve_core(ARM, cfg, jnp.asarray(X0),
-                      jnp.zeros((4, 2), jnp.float32), window, nvalid,
-                      eps=eps, interpret=True, unroll_w=False)
-
-
-def test_round5_option_plumbing(ref_path):
-    """The round-5 kernel options stay wired and validated: icdf_noise is
-    PRNG-mode-only (ValueError with injected eps), explicit approx_recip
-    in eps mode still lowers in interpret mode (exact-divide default is
-    separately pinned bitwise by the parity tests).  The PRNG-mode icdf
-    path cannot execute on CPU at all (prng_seed has no CPU lowering);
-    its execution and statistics are asserted on-chip in
-    tools/tpu_microlever_ab.py and the AOT TPU-lowering test below."""
-    cfg = dataclasses.replace(MPPIConfig(), num_samples=128, horizon=4)
-    window, valid = slice_window(jnp.asarray(ref_path, jnp.float32), 0, 30)
-    nvalid = jnp.asarray(np.float32(np.asarray(valid).sum()))
-    u = jnp.zeros((4, 2), jnp.float32)
-    eps = jnp.zeros((128, 4, 2), jnp.float32)
-    with pytest.raises(ValueError, match="PRNG mode"):
-        pallas_solve_core(ARM, cfg, jnp.asarray(X0), u, window, nvalid,
-                          eps=eps, interpret=True, icdf_noise=True)
-    # explicit approx_recip with injected eps: allowed override, must run
-    w_a, s_a, _ = pallas_solve_core(ARM, cfg, jnp.asarray(X0), u, window,
-                                    nvalid, eps=eps, interpret=True,
-                                    approx_recip=True)
-    assert np.isfinite(np.asarray(s_a)).all()
-    # PRNG mode + icdf: Mosaic cross-lowering must accept erf_inv
-    # (x64 off for jax.export, as in test_mosaic_lowering_aot)
+def _export_cuda(f, *args):
+    """Lower ``f`` for CUDA on this host: the kernel compiled, not
+    interpreted, down to Triton IR (its PTX compile happens on the card).
+    (x64 off: jax.export recurses on weak int64 scalars under x64.)"""
+    dis = [jax.export.DisabledSafetyCheck.custom_call("__gpu$xla.gpu.triton")]
     jax.config.update("jax_enable_x64", False)
     try:
-        f = lambda x0, u_, s_: pallas_solve_core(
-            ARM, cfg, x0, u_, window.astype(jnp.float32),
-            jnp.float32(30.0), seed=s_, icdf_noise=True)
-        jax.export.export(jax.jit(f), platforms=["tpu"])(
-            jnp.zeros(4), jnp.zeros((4, 2)), jnp.asarray(0, jnp.int32))
+        exp = jax.export.export(jax.jit(f), platforms=["cuda"],
+                                disabled_checks=dis)(*args)
     finally:
         jax.config.update("jax_enable_x64", True)
+    return exp.mlir_module()
 
 
-def test_unmasked_window_scan_bitwise(ref_path, rng):
-    """The unmasked tournament scan (round-3 default) is BIT-IDENTICAL to
-    the masked one, including truncated windows at the path end: clamped
-    windows duplicate the last valid row, and strict-< first-win ties make
-    the duplicate's (d, values) tuple equal the valid row's.  Pins the
-    value-identity argument in _tracking_cost's docstring."""
-    import functools
-    from mppi_robotarm_tpu.ops import pallas_rollout as pr
+# the production shapes: K=1024/H=50, K=65536/H=50, B=4096 × K=128/H=50
+@pytest.mark.parametrize("k,b", [(1024, None), (65536, None), (128, 4096)])
+def test_cuda_cross_lowering(k, b):
+    cfg = dataclasses.replace(MPPIConfig(), num_samples=k, horizon=50)
+    sinv = jnp.asarray(sigma_inverse(cfg.sigma), F32)
 
-    cfg = dataclasses.replace(MPPIConfig(), num_samples=256, horizon=6)
-    t = cfg.horizon
-    u = np.tile(np.asarray(cfg.warm_start, np.float32), (t, 1))
-    eps = (rng.normal(size=(256, t, 2)) * np.sqrt(20.0)).astype(np.float32)
-    n = ref_path.shape[0]
-    orig = pr._tracking_cost
-    for start in (0, n - 4, n - 1):      # full, truncated, single-row window
-        window, valid = slice_window(jnp.asarray(ref_path, jnp.float32),
-                                     start, cfg.search_idx_len)
-        nvalid = jnp.asarray(np.float32(np.asarray(valid).sum()))
-        outs = {}
-        for masked in (False, True):
-            pr._tracking_cost = functools.partial(orig, masked=masked)
-            try:
-                w_eps, s, _ = pallas_solve_core(
-                    ARM, cfg, jnp.asarray(X0), jnp.asarray(u), window,
-                    nvalid, eps=jnp.asarray(eps), interpret=True,
-                    unroll_w=True)
-            finally:
-                pr._tracking_cost = orig
-            outs[masked] = (np.asarray(w_eps), np.asarray(s))
-        np.testing.assert_array_equal(outs[False][1], outs[True][1],
-                                      err_msg=f"S differs at start={start}")
-        np.testing.assert_array_equal(outs[False][0], outs[True][0],
-                                      err_msg=f"weps differs at start={start}")
+    def f(x0, u, eps, window, valid):
+        return rollout_costs_pallas(ARM, cfg, x0, u, eps, window, valid,
+                                    sinv)
+
+    shapes = [(4,), (50, 2), (k, 50, 2), (30, 4)]
+    if b is not None:
+        f = jax.vmap(f)
+        shapes = [(b,) + s for s in shapes]
+    args = [jax.ShapeDtypeStruct(s, F32) for s in shapes]
+    args.append(jax.ShapeDtypeStruct(((b,) if b else ()) + (30,), bool))
+    text = _export_cuda(f, *args)
+    # one compiled launch, and nothing of the interpreted form
+    assert text.count("__gpu$xla.gpu.triton") == 1
+    assert "stablehlo.sine" not in text
+
+
+def test_cuda_cross_lowering_closed_loop(ref_path):
+    """The whole scan-compiled closed loop with the kernel inside lowers."""
+    import mppi_robotarm as m
+    cfg = dataclasses.replace(MPPIConfig(), num_samples=1024, horizon=50)
+    sim = m.SimConfig()
+    ref = jnp.asarray(ref_path, F32)
+
+    def f(q):
+        s0 = m.init_sim(cfg, sim, jax.random.PRNGKey(0))._replace(q=q)
+        return m.simulate(ARM, cfg, sim, ref, s0, 4, backend="pallas")[1].q
+
+    text = _export_cuda(f, jax.ShapeDtypeStruct((2,), F32))
+    assert "__gpu$xla.gpu.triton" in text
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k,h", [(1000, 50), (65536, 50)])
+def test_compiled_kernel_matches_rollout_costs(gpu, rng, k, h):
+    """On the card: the compiled kernel vs the XLA rollout, K not a
+    multiple of the block and at full width."""
+    cfg = dataclasses.replace(MPPIConfig(), num_samples=k, horizon=h,
+                              exploration=0.1)
+    u, eps, window, valid, sinv = _inputs(cfg, rng, start=100,
+                                          path=synth_circle_path(8000))
+    s, s_ref = _both(cfg, jnp.asarray(X0), u, eps, window, valid, sinv)
+    np.testing.assert_allclose(s, s_ref, rtol=1e-4)
+
+
+@pytest.mark.gpu
+def test_compiled_closed_loop_backends_agree(gpu):
+    """On the card: 50 closed-loop steps, pallas vs xla, same keys.
+
+    The compiled backends differ by ulps per solve (libdevice vs XLA
+    transcendentals, contraction order), and the closed loop amplifies
+    that (×4.6 per step, PARITY_RUN.md): the runs agree tightly at first
+    and then only in shape."""
+    import mppi_robotarm as m
+    arm, cfg, sim = m.benchmark_preset()
+    ref = jnp.asarray(m.synth_circle_path(8000), F32)
+    s0 = m.init_sim(cfg, sim, jax.random.PRNGKey(0))
+    _, ra = m.simulate(arm, cfg, sim, ref, s0, 50, backend="xla")
+    _, rb = m.simulate(arm, cfg, sim, ref, s0, 50, backend="pallas")
+    wa, wb = np.asarray(ra.wp_idx), np.asarray(rb.wp_idx)
+    np.testing.assert_array_equal(wa[:10], wb[:10])
+    np.testing.assert_allclose(np.asarray(rb.q[:10]), np.asarray(ra.q[:10]),
+                               atol=1e-3)
+    assert np.abs(wa - wb).max() <= 3, (wa, wb)
+    assert np.isfinite(np.asarray(rb.q)).all()

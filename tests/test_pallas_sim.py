@@ -1,494 +1,140 @@
-"""Fully-fused closed-loop kernel (ops/pallas_sim.py) — parity vs the
-per-step drivers on the same injected noise (interpret mode on CPU)."""
+"""The closed loop with the Pallas rollout kernel (``backend='pallas'``) —
+``simulate`` / ``simulate_batch`` against the XLA backend on the same keys
+(interpret mode on CPU)."""
 
 import dataclasses
 
 import numpy as np
 import jax
 import jax.numpy as jnp
-import pytest
 
-import mppi_robotarm_tpu as m
-from mppi_robotarm_tpu.config import ArmParams, MPPIConfig, SimConfig
-from mppi_robotarm_tpu.ops.pallas_sim import pallas_sim_run
+import mppi_robotarm as m
+from mppi_robotarm.config import ArmParams, MPPIConfig, SimConfig
 
 ARM = ArmParams()
 SIM = SimConfig()
+F32 = jnp.float32
 
 
-def _run_pair(cfg, ref, steps, eps, interpret=True):
-    rec, ufin = pallas_sim_run(
-        ARM, cfg, SIM, ref, jnp.asarray(SIM.q0), jnp.asarray(SIM.dq0),
-        jnp.tile(jnp.asarray(cfg.warm_start, jnp.float32), (cfg.horizon, 1)),
-        0, 0, steps, eps=jnp.asarray(eps), interpret=interpret)
-    s0 = m.init_sim(cfg, SIM, jax.random.PRNGKey(0))
-    _, recs = m.simulate_python(ARM, cfg, SIM, ref, s0, steps,
-                                eps_per_step=[jnp.asarray(e) for e in eps])
-    return np.asarray(rec), recs
+def _run(cfg, ref, steps, backend, key=0, state=None):
+    s0 = state if state is not None else m.init_sim(
+        cfg, SIM, jax.random.PRNGKey(key), dtype=F32)
+    return m.simulate(ARM, cfg, SIM, ref, s0, steps, backend=backend)
 
 
-def test_fused_loop_matches_per_step(ref_path, rng):
+def test_pallas_loop_matches_xla_per_step(ref_path):
+    """Same keys, same noise: the two backends differ only in float32
+    summation order, amplified by the mildly chaotic loop (tolerance grows
+    with the step, as in test_sim.py's long-parity notes)."""
     cfg = dataclasses.replace(MPPIConfig(), num_samples=128, horizon=8)
-    ref = jnp.asarray(ref_path[:400], jnp.float32)
+    ref = jnp.asarray(ref_path[:400], F32)
     steps = 6
-    eps = (rng.normal(size=(steps, 128, 8, 2)) * np.sqrt(20.0)).astype(
-        np.float32)
-    rec, recs = _run_pair(cfg, ref, steps, eps)
-    # ulp-level seed difference (the per-step XLA path reduces Σwε with a
-    # different summation order than the kernel's jnp.sum) amplified by the
-    # mildly chaotic loop (see test_sim.py long-parity notes) — tolerance
-    # grows with step
+    _, ra = _run(cfg, ref, steps, "xla")
+    _, rb = _run(cfg, ref, steps, "pallas")
     for i in range(steps):
-        np.testing.assert_allclose(rec[i, 0:2], recs[i][0],
-                                   atol=2e-6 * 4 ** i,
-                                   err_msg=f"q step {i}")
-        np.testing.assert_allclose(rec[i, 4:6], recs[i][2],
-                                   atol=2e-5 * 4 ** i,
-                                   err_msg=f"u step {i}")
-        assert int(rec[i, 6]) == recs[i][3]
-        assert rec[i, 7] == 0.0
+        np.testing.assert_allclose(np.asarray(rb.q[i]), np.asarray(ra.q[i]),
+                                   atol=2e-6 * 4 ** i, err_msg=f"q step {i}")
+        np.testing.assert_allclose(np.asarray(rb.u[i]), np.asarray(ra.u[i]),
+                                   atol=2e-5 * 4 ** i, err_msg=f"u step {i}")
+    np.testing.assert_array_equal(np.asarray(rb.wp_idx),
+                                  np.asarray(ra.wp_idx))
+    assert not np.any(np.asarray(rb.done))
 
 
-def test_fused_loop_k_padding(ref_path, rng):
-    """K=100 (reference config) pads inside the fused loop too."""
+def test_pallas_loop_k_padding(ref_path):
+    """K=100 (the reference config) pads to the block inside the loop."""
     cfg = dataclasses.replace(MPPIConfig(), num_samples=100, horizon=6)
-    ref = jnp.asarray(ref_path[:400], jnp.float32)
-    steps = 4
-    eps = (rng.normal(size=(steps, 100, 6, 2)) * np.sqrt(20.0)).astype(
-        np.float32)
-    rec, recs = _run_pair(cfg, ref, steps, eps)
-    for i in range(steps):
-        np.testing.assert_allclose(rec[i, 0:2], recs[i][0],
-                                   atol=2e-6 * 4 ** i,
-                                   err_msg=f"q step {i}")
+    ref = jnp.asarray(ref_path[:400], F32)
+    _, ra = _run(cfg, ref, 4, "xla")
+    _, rb = _run(cfg, ref, 4, "pallas")
+    for i in range(4):
+        np.testing.assert_allclose(np.asarray(rb.q[i]), np.asarray(ra.q[i]),
+                                   atol=2e-6 * 4 ** i, err_msg=f"q step {i}")
 
 
-def test_fused_loop_path_end_freeze(rng):
-    """A short path trips the Q6 freeze; records mark done=1 afterwards."""
-    cfg = dataclasses.replace(MPPIConfig(), num_samples=128, horizon=6)
+def _short_path():
     # 40 waypoints over a tiny arc (~1.9 mm spacing) so the tracker
-    # actually reaches the path end within the run
-    short = jnp.asarray(m.synth_circle_path(40, revolutions=0.02),
-                        jnp.float32)
-    steps = 200
-    eps = (rng.normal(size=(steps, 128, 6, 2)) * np.sqrt(20.0)).astype(
-        np.float32)
-    rec, _ = pallas_sim_run(
-        ARM, cfg, SIM, short, jnp.asarray(SIM.q0), jnp.asarray(SIM.dq0),
-        jnp.tile(jnp.asarray(cfg.warm_start, jnp.float32), (6, 1)),
-        0, 0, steps, eps=jnp.asarray(eps), interpret=True)
-    rec = np.asarray(rec)
-    assert rec[-1, 7] == 1.0, "should have frozen at path end"
-    first_done = int(np.argmax(rec[:, 7] > 0.5))
-    assert np.all(rec[first_done:, 7] == 1.0)
+    # reaches the path end within the run
+    return jnp.asarray(m.synth_circle_path(40, revolutions=0.02), F32)
 
 
-def test_simulate_fused_wrapper(ref_path, rng):
-    """The public wrapper returns SimRecord/SimState equal to simulate()."""
+def test_pallas_loop_path_end_freeze():
+    """A short path trips the Q6 freeze; records stay done afterwards."""
+    cfg = dataclasses.replace(MPPIConfig(), num_samples=128, horizon=6)
+    final, rec = _run(cfg, _short_path(), 200, "pallas")
+    done = np.asarray(rec.done)
+    assert done[-1], "should have frozen at path end"
+    first = int(np.argmax(done))
+    assert np.all(done[first:])
+    assert bool(final.done)
+
+
+def test_pallas_loop_frozen_records_carry_state():
+    """After path end the records keep the frozen q/dq and wp_idx, with the
+    u and cost lanes zeroed."""
+    cfg = dataclasses.replace(MPPIConfig(), num_samples=128, horizon=6)
+    _, rec = _run(cfg, _short_path(), 200, "pallas")
+    done = np.asarray(rec.done)
+    first = int(np.argmax(done))
+    q, dq = np.asarray(rec.q)[first:], np.asarray(rec.dq)[first:]
+    assert np.all(q == q[0]) and np.all(dq == dq[0])
+    assert np.any(q[0] != 0.0)
+    assert np.all(np.asarray(rec.wp_idx)[first:] == int(rec.wp_idx[first]))
+    assert np.all(np.asarray(rec.u)[first:] == 0.0)
+    assert np.all(np.asarray(rec.cost_min)[first:] == 0.0)
+    assert np.all(np.asarray(rec.cost_mean)[first:] == 0.0)
+
+
+def test_pallas_loop_chunked_continues_full(ref_path):
+    """Chaining simulate from the returned state equals one long run:
+    records concatenate exactly and ref_xy rows stay step-aligned."""
     cfg = dataclasses.replace(MPPIConfig(), num_samples=128, horizon=8)
-    ref = jnp.asarray(ref_path[:400], jnp.float32)
-    steps = 5
-    eps = (rng.normal(size=(steps, 128, 8, 2)) * np.sqrt(20.0)).astype(
-        np.float32)
-
-    from jax.experimental.pallas import tpu as pltpu
-    import mppi_robotarm_tpu.ops.pallas_sim as ps
-    orig = ps.pallas_sim_run
-    ps.pallas_sim_run = lambda *a, **kw: orig(
-        *a, **{**kw, "interpret": True})
-    try:
-        s0 = m.init_sim(cfg, SIM, jax.random.PRNGKey(0))
-        final, rec = m.simulate_fused(ARM, cfg, SIM, ref, s0, steps,
-                                      eps_per_step=eps)
-    finally:
-        ps.pallas_sim_run = orig
-
-    s0b = m.init_sim(cfg, SIM, jax.random.PRNGKey(0))
-    _, recs = m.simulate_python(ARM, cfg, SIM, ref, s0b, steps,
-                                eps_per_step=[jnp.asarray(e) for e in eps])
-    np.testing.assert_allclose(np.asarray(rec.q[-1]), recs[-1][0],
-                               atol=1e-4)
-    np.testing.assert_allclose(np.asarray(final.q), recs[-1][0], atol=1e-4)
-    assert int(final.mppi.wp_idx) == recs[-1][3]
-    assert rec.q.shape == (steps, 2) and rec.ee.shape == (steps, 2)
-
-
-def test_fused_mosaic_lowering_aot(ref_path):
-    """Mosaic cross-lowering of the fused loop (x64 off for jax.export)."""
-    jax.config.update("jax_enable_x64", False)
-    try:
-        cfg = dataclasses.replace(MPPIConfig(), num_samples=128, horizon=8)
-        ref = jnp.asarray(ref_path[:400], jnp.float32)
-        f = lambda q0, dq0, up, wp, seed: pallas_sim_run(
-            ARM, cfg, SIM, ref, q0, dq0, up, wp, seed, 4)
-        args = (jnp.zeros(2), jnp.zeros(2), jnp.zeros((8, 2)),
-                jnp.asarray(0, jnp.int32), jnp.asarray(0, jnp.int32))
-        jax.export.export(jax.jit(f), platforms=["tpu"])(*args)
-    finally:
-        jax.config.update("jax_enable_x64", True)
-
-
-def test_fused_frozen_records_carry_state(rng):
-    """After path end the fused kernel's record rows keep the frozen q/dq and
-    wp_idx (not zeros) — matching simulate()'s keep semantics."""
-    cfg = dataclasses.replace(MPPIConfig(), num_samples=128, horizon=6)
-    short = jnp.asarray(m.synth_circle_path(40, revolutions=0.02),
-                        jnp.float32)
-    steps = 200
-    eps = (rng.normal(size=(steps, 128, 6, 2)) * np.sqrt(20.0)).astype(
-        np.float32)
-    rec, _ = pallas_sim_run(
-        ARM, cfg, SIM, short, jnp.asarray(SIM.q0), jnp.asarray(SIM.dq0),
-        jnp.tile(jnp.asarray(cfg.warm_start, jnp.float32), (6, 1)),
-        0, 0, steps, eps=jnp.asarray(eps), interpret=True)
-    rec = np.asarray(rec)
-    assert rec[-1, 7] == 1.0
-    first_done = int(np.argmax(rec[:, 7] > 0.5))
-    frozen = rec[first_done:]
-    # q/dq lanes hold the frozen (nonzero) state on every row after the end
-    assert np.all(frozen[:, 0:4] == frozen[0, 0:4])
-    assert np.any(frozen[0, 0:2] != 0.0)
-    # wp_idx keeps its pre-advance value and never moves again
-    assert np.all(frozen[:, 6] == frozen[0, 6])
-    # u and cost lanes are zeroed after path end (same as simulate())
-    assert np.all(frozen[1:, 4:6] == 0.0) and np.all(frozen[1:, 8:10] == 0.0)
-
-
-def test_batched_fused_matches_single(ref_path, rng):
-    """pallas_sim_run_batched (grid over scenarios) is bitwise equal to the
-    single-scenario fused kernel run per scenario (VERDICT r1 item 3)."""
-    from mppi_robotarm_tpu.ops.pallas_sim import pallas_sim_run_batched
-    cfg = dataclasses.replace(MPPIConfig(), num_samples=128, horizon=6)
-    ref = jnp.asarray(ref_path[:400], jnp.float32)
-    B, steps = 3, 5
-    eps = (rng.normal(size=(B, steps, 128, 6, 2)) * np.sqrt(20.0)).astype(
-        np.float32)
-    q0 = (jnp.tile(jnp.asarray([SIM.q0], jnp.float32), (B, 1))
-          + 0.01 * jnp.arange(B)[:, None])
-    dq0 = jnp.zeros((B, 2), jnp.float32)
-    up = jnp.tile(jnp.asarray(cfg.warm_start, jnp.float32), (B, 6, 1))
-    recb, ufinb = pallas_sim_run_batched(
-        ARM, cfg, SIM, ref, q0, dq0, up, jnp.zeros(B, jnp.int32),
-        jnp.zeros(B, jnp.int32), steps, eps=jnp.asarray(eps), interpret=True)
-    for b in range(B):
-        rec1, ufin1 = pallas_sim_run(
-            ARM, cfg, SIM, ref, q0[b], dq0[b], up[b], 0, 0, steps,
-            eps=jnp.asarray(eps[b]), interpret=True)
-        np.testing.assert_array_equal(np.asarray(recb[b]), np.asarray(rec1))
-        np.testing.assert_array_equal(np.asarray(ufinb[b]), np.asarray(ufin1))
-
-
-def test_grouped_fused_matches_group1(ref_path, rng):
-    """group=G (scenario-interleaved ILP) is bitwise equal to group=1 —
-    including when some scenarios in a group freeze at path end while
-    others keep running (the branchless masking path)."""
-    from mppi_robotarm_tpu.ops.pallas_sim import pallas_sim_run_batched
-    cfg = dataclasses.replace(MPPIConfig(), num_samples=128, horizon=6)
-    # scenarios 0/2 track normally; 1/3 start AT the last waypoint
-    # (wp_idx = n-1), which trips the Q6 path-end freeze on their first
-    # step — a guaranteed frozen/active mix inside one group
-    ref = jnp.asarray(ref_path[:120], jnp.float32)
-    B, steps = 4, 20
-    eps = (rng.normal(size=(B, steps, 128, 6, 2)) * np.sqrt(20.0)).astype(
-        np.float32)
-    q0 = (jnp.tile(jnp.asarray([SIM.q0], jnp.float32), (B, 1))
-          + 0.005 * jnp.arange(B)[:, None])
-    dq0 = jnp.zeros((B, 2), jnp.float32)
-    up = jnp.tile(jnp.asarray(cfg.warm_start, jnp.float32), (B, 6, 1))
-    wp0 = jnp.asarray([0, 119, 0, 119], jnp.int32)
-    args = (ARM, cfg, SIM, ref, q0, dq0, up, wp0,
-            jnp.zeros(B, jnp.int32), steps)
-    rec1, ufin1 = pallas_sim_run_batched(*args, eps=jnp.asarray(eps),
-                                         interpret=True, group=1)
-    rec1 = np.asarray(rec1)
-    assert rec1[:, -1, 7].tolist() == [0.0, 1.0, 0.0, 1.0], \
-        "fixture must mix frozen and active scenarios in the group"
-    # K=128 -> sub==1, so group>1 takes the SUBLANE-STACKED kernel
-    for g in (2, 4):
-        recg, ufing = pallas_sim_run_batched(*args, eps=jnp.asarray(eps),
-                                             interpret=True, group=g)
-        np.testing.assert_array_equal(np.asarray(recg), rec1,
-                                      err_msg=f"records group={g}")
-        np.testing.assert_array_equal(np.asarray(ufing), np.asarray(ufin1),
-                                      err_msg=f"u_final group={g}")
-
-
-def test_stacked_k_padding_matches_group1(ref_path, rng):
-    """K=100 (reference config, padded to one 128-lane tile) through the
-    stacked kernel: per-row lane masking must reproduce group=1 bitwise."""
-    from mppi_robotarm_tpu.ops.pallas_sim import pallas_sim_run_batched
-    cfg = dataclasses.replace(MPPIConfig(), num_samples=100, horizon=6)
-    ref = jnp.asarray(ref_path[:300], jnp.float32)
-    B, steps = 4, 5
-    eps = (rng.normal(size=(B, steps, 100, 6, 2)) * np.sqrt(20.0)).astype(
-        np.float32)
-    q0 = (jnp.tile(jnp.asarray([SIM.q0], jnp.float32), (B, 1))
-          + 0.01 * jnp.arange(B)[:, None])
-    args = (ARM, cfg, SIM, ref, q0, jnp.zeros((B, 2), jnp.float32),
-            jnp.tile(jnp.asarray(cfg.warm_start, jnp.float32), (B, 6, 1)),
-            jnp.zeros(B, jnp.int32), jnp.zeros(B, jnp.int32), steps)
-    rec1, ufin1 = pallas_sim_run_batched(*args, eps=jnp.asarray(eps),
-                                         interpret=True, group=1)
-    rec4, ufin4 = pallas_sim_run_batched(*args, eps=jnp.asarray(eps),
-                                         interpret=True, group=4)
-    np.testing.assert_array_equal(np.asarray(rec4), np.asarray(rec1))
-    np.testing.assert_array_equal(np.asarray(ufin4), np.asarray(ufin1))
-
-
-def test_grouped_interleaved_matches_group1(ref_path, rng):
-    """K=256 (sub=2) routes group>1 to the instruction-INTERLEAVED kernel;
-    bitwise vs group=1 there too."""
-    from mppi_robotarm_tpu.ops.pallas_sim import pallas_sim_run_batched
-    cfg = dataclasses.replace(MPPIConfig(), num_samples=256, horizon=5)
-    ref = jnp.asarray(ref_path[:200], jnp.float32)
-    B, steps = 2, 4
-    eps = (rng.normal(size=(B, steps, 256, 5, 2)) * np.sqrt(20.0)).astype(
-        np.float32)
-    q0 = (jnp.tile(jnp.asarray([SIM.q0], jnp.float32), (B, 1))
-          + 0.01 * jnp.arange(B)[:, None])
-    args = (ARM, cfg, SIM, ref, q0, jnp.zeros((B, 2), jnp.float32),
-            jnp.tile(jnp.asarray(cfg.warm_start, jnp.float32), (B, 5, 1)),
-            jnp.zeros(B, jnp.int32), jnp.zeros(B, jnp.int32), steps)
-    rec1, ufin1 = pallas_sim_run_batched(*args, eps=jnp.asarray(eps),
-                                         interpret=True, group=1)
-    rec2, ufin2 = pallas_sim_run_batched(*args, eps=jnp.asarray(eps),
-                                         interpret=True, group=2)
-    np.testing.assert_array_equal(np.asarray(rec2), np.asarray(rec1))
-    np.testing.assert_array_equal(np.asarray(ufin2), np.asarray(ufin1))
-
-
-def test_fast_select_matches_exact_both_kernels(ref_path, rng):
-    """Forcing the fast_select metric (and, in the stacked kernel, the
-    hoisted fast_coef coefficients) through BOTH sim kernels in interpret
-    mode reproduces the exact-metric run (round-4 advisor: the fast paths
-    were gated on use_prng, so no CI test ever executed them — equivalence
-    rested solely on the on-chip tools tpu_stacked_bitwise.py /
-    tpu_fused_fastsel_ab.py).
-
-    The window-centered reassociated score only differs from the exact
-    metric at ~1e-9, so on this fixture no selection flips occur and the
-    runs agree bitwise; a regression in the fast_coef hoist (wrong sign,
-    wrong centering row, stale stacking) flips selections immediately."""
-    from mppi_robotarm_tpu.ops.pallas_sim import pallas_sim_run_batched
-    # stacked kernel: K=128 (sub=1), group=4 -> fast_coef hoist path
-    cfg = dataclasses.replace(MPPIConfig(), num_samples=128, horizon=6)
-    ref = jnp.asarray(ref_path[:300], jnp.float32)
-    B, steps = 4, 6
-    eps = (rng.normal(size=(B, steps, 128, 6, 2)) * np.sqrt(20.0)).astype(
-        np.float32)
-    q0 = (jnp.tile(jnp.asarray([SIM.q0], jnp.float32), (B, 1))
-          + 0.01 * jnp.arange(B)[:, None])
-    args = (ARM, cfg, SIM, ref, q0, jnp.zeros((B, 2), jnp.float32),
-            jnp.tile(jnp.asarray(cfg.warm_start, jnp.float32), (B, 6, 1)),
-            jnp.zeros(B, jnp.int32), jnp.zeros(B, jnp.int32), steps)
-    rec_x, ufin_x = pallas_sim_run_batched(*args, eps=jnp.asarray(eps),
-                                           interpret=True, group=4,
-                                           fast_select=False)
-    rec_f, ufin_f = pallas_sim_run_batched(*args, eps=jnp.asarray(eps),
-                                           interpret=True, group=4,
-                                           fast_select=True)
-    np.testing.assert_array_equal(np.asarray(rec_f), np.asarray(rec_x),
-                                  err_msg="stacked kernel records")
-    np.testing.assert_array_equal(np.asarray(ufin_f), np.asarray(ufin_x),
-                                  err_msg="stacked kernel u_final")
-
-    # interleaved kernel: K=256 (sub=2) routes group=1 to _sim_kernel
-    cfg2 = dataclasses.replace(MPPIConfig(), num_samples=256, horizon=5)
-    eps2 = (rng.normal(size=(1, steps, 256, 5, 2)) * np.sqrt(20.0)).astype(
-        np.float32)
-    args2 = (ARM, cfg2, SIM, ref, q0[:1], jnp.zeros((1, 2), jnp.float32),
-             jnp.tile(jnp.asarray(cfg2.warm_start, jnp.float32), (1, 5, 1)),
-             jnp.zeros(1, jnp.int32), jnp.zeros(1, jnp.int32), steps)
-    rec_x2, ufin_x2 = pallas_sim_run_batched(*args2, eps=jnp.asarray(eps2),
-                                             interpret=True, group=1,
-                                             fast_select=False)
-    rec_f2, ufin_f2 = pallas_sim_run_batched(*args2, eps=jnp.asarray(eps2),
-                                             interpret=True, group=1,
-                                             fast_select=True)
-    np.testing.assert_array_equal(np.asarray(rec_f2), np.asarray(rec_x2),
-                                  err_msg="interleaved kernel records")
-    np.testing.assert_array_equal(np.asarray(ufin_f2), np.asarray(ufin_x2),
-                                  err_msg="interleaved kernel u_final")
-
-
-def test_grouped_fused_validates_divisibility(ref_path):
-    from mppi_robotarm_tpu.ops.pallas_sim import pallas_sim_run_batched
-    cfg = dataclasses.replace(MPPIConfig(), num_samples=128, horizon=6)
-    ref = jnp.asarray(ref_path[:120], jnp.float32)
-    B = 3
-    with pytest.raises(ValueError, match="divisible"):
-        pallas_sim_run_batched(
-            ARM, cfg, SIM, ref, jnp.zeros((B, 2)), jnp.zeros((B, 2)),
-            jnp.zeros((B, 6, 2)), jnp.zeros(B, jnp.int32),
-            jnp.zeros(B, jnp.int32), 2, interpret=True, group=2)
-
-
-def test_simulate_fused_batch_wrapper(ref_path, rng):
-    """The public batched wrapper matches per-scenario simulate_python on the
-    same injected noise (record conventions of simulate_batch)."""
-    cfg = dataclasses.replace(MPPIConfig(), num_samples=128, horizon=8)
-    ref = jnp.asarray(ref_path[:400], jnp.float32)
-    B, steps = 2, 4
-    eps = (rng.normal(size=(B, steps, 128, 8, 2)) * np.sqrt(20.0)).astype(
-        np.float32)
-
-    import mppi_robotarm_tpu.ops.pallas_sim as ps
-    orig = ps.pallas_sim_run_batched
-    ps.pallas_sim_run_batched = lambda *a, **kw: orig(
-        *a, **{**kw, "interpret": True})
-    try:
-        keys = jax.vmap(jax.random.PRNGKey)(jnp.arange(B))
-        states0 = m.init_sim_batch(cfg, SIM, keys)
-        final, rec = m.simulate_fused_batch(ARM, cfg, SIM, ref, states0,
-                                            steps, eps_per_step=eps)
-    finally:
-        ps.pallas_sim_run_batched = orig
-
-    assert rec.q.shape == (steps, B, 2) and rec.ee.shape == (steps, B, 2)
-    assert rec.ess.shape == (steps, B)
-    for b in range(B):
-        s0 = m.init_sim(cfg, SIM, jax.random.PRNGKey(0))
-        _, recs = m.simulate_python(ARM, cfg, SIM, ref, s0, steps,
-                                    eps_per_step=[jnp.asarray(e)
-                                                  for e in eps[b]])
-        np.testing.assert_allclose(np.asarray(rec.q[-1, b]), recs[-1][0],
-                                   atol=1e-4)
-        assert int(final.mppi.wp_idx[b]) == recs[-1][3]
-
-
-def test_fused_chunked_continues_full(ref_path, rng):
-    """Chaining simulate_fused from the returned state equals one long fused
-    run: records concatenate exactly and ref_xy rows stay step-aligned
-    (regression: the fused drivers ignored state0.step, so resumed runs
-    replayed ref rows — and, in PRNG mode, the noise stream — from step 0).
-    Injected noise isolates the state/step plumbing; the PRNG-stream
-    continuation itself is exercised on chip by tools/tpu_validate.py."""
-    cfg = dataclasses.replace(MPPIConfig(), num_samples=128, horizon=8)
-    ref = jnp.asarray(ref_path[:400], jnp.float32)
-    steps = 6
-    eps = (rng.normal(size=(steps, 128, 8, 2)) * np.sqrt(20.0)).astype(
-        np.float32)
-
-    import mppi_robotarm_tpu.ops.pallas_sim as ps
-    orig = ps.pallas_sim_run
-    ps.pallas_sim_run = lambda *a, **kw: orig(*a, **{**kw, "interpret": True})
-    try:
-        s0 = m.init_sim(cfg, SIM, jax.random.PRNGKey(3))
-        _, rec_full = m.simulate_fused(ARM, cfg, SIM, ref, s0, steps,
-                                       eps_per_step=eps)
-
-        state = m.init_sim(cfg, SIM, jax.random.PRNGKey(3))
-        parts = []
-        for lo, hi in ((0, 3), (3, 6)):
-            state, rec = m.simulate_fused(ARM, cfg, SIM, ref, state, hi - lo,
-                                          eps_per_step=eps[lo:hi])
-            parts.append(rec)
-    finally:
-        ps.pallas_sim_run = orig
-    assert int(state.step) == steps
-    rec_chunk = jax.tree.map(
-        lambda *xs: jnp.concatenate(xs, 0), *parts)
-    for f in rec_full._fields:
-        np.testing.assert_array_equal(
-            np.asarray(getattr(rec_chunk, f)),
-            np.asarray(getattr(rec_full, f)), err_msg=f)
-
-
-def test_fused_batch_chunked_continues_full(ref_path, rng):
-    """Chaining simulate_fused_batch from the returned batched state equals
-    one long fused fleet run — per-scenario step/stream alignment holds
-    through the stacked kernel too."""
-    cfg = dataclasses.replace(MPPIConfig(), num_samples=128, horizon=8)
-    ref = jnp.asarray(ref_path[:400], jnp.float32)
-    B, steps = 2, 6
-    eps = (rng.normal(size=(B, steps, 128, 8, 2)) * np.sqrt(20.0)).astype(
-        np.float32)
-
-    import mppi_robotarm_tpu.ops.pallas_sim as ps
-    orig = ps.pallas_sim_run_batched
-    ps.pallas_sim_run_batched = lambda *a, **kw: orig(
-        *a, **{**kw, "interpret": True})
-    try:
-        keys = jax.vmap(jax.random.PRNGKey)(jnp.arange(B))
-        s_full = m.init_sim_batch(cfg, SIM, keys)
-        _, rec_full = m.simulate_fused_batch(ARM, cfg, SIM, ref, s_full,
-                                             steps, eps_per_step=eps)
-        states = m.init_sim_batch(cfg, SIM, keys)
-        parts = []
-        for lo, hi in ((0, 3), (3, 6)):
-            states, rec = m.simulate_fused_batch(
-                ARM, cfg, SIM, ref, states, hi - lo,
-                eps_per_step=eps[:, lo:hi])
-            parts.append(rec)
-    finally:
-        ps.pallas_sim_run_batched = orig
-    assert np.all(np.asarray(states.step) == steps)
+    ref = jnp.asarray(ref_path[:400], F32)
+    _, rec_full = _run(cfg, ref, 6, "pallas", key=3)
+    state = m.init_sim(cfg, SIM, jax.random.PRNGKey(3), dtype=F32)
+    parts = []
+    for n in (3, 3):
+        state, rec = _run(cfg, ref, n, "pallas", state=state)
+        parts.append(rec)
+    assert int(state.step) == 6
     rec_chunk = jax.tree.map(lambda *xs: jnp.concatenate(xs, 0), *parts)
     for f in rec_full._fields:
-        np.testing.assert_array_equal(
-            np.asarray(getattr(rec_chunk, f)),
-            np.asarray(getattr(rec_full, f)), err_msg=f)
+        np.testing.assert_array_equal(np.asarray(getattr(rec_chunk, f)),
+                                      np.asarray(getattr(rec_full, f)),
+                                      err_msg=f)
 
 
-def test_auto_chunking_equals_single_launch(ref_path, rng):
-    """simulate_fused/_batch transparently chain when num_steps exceeds the
-    per-launch record budget; force a tiny budget and compare."""
-    import mppi_robotarm_tpu.sim.loop as L
-    import mppi_robotarm_tpu.ops.pallas_sim as ps
-    cfg = dataclasses.replace(MPPIConfig(), num_samples=128, horizon=8)
-    ref = jnp.asarray(ref_path[:400], jnp.float32)
-    steps = 7
-    eps1 = (rng.normal(size=(steps, 128, 8, 2)) * np.sqrt(20.0)).astype(
-        np.float32)
-    orig_run = ps.pallas_sim_run
-    orig_runb = ps.pallas_sim_run_batched
-    ps.pallas_sim_run = lambda *a, **kw: orig_run(
-        *a, **{**kw, "interpret": True})
-    ps.pallas_sim_run_batched = lambda *a, **kw: orig_runb(
-        *a, **{**kw, "interpret": True})
-    orig_max = L._FUSED_MAX_STEPS
-    try:
-        s0 = m.init_sim(cfg, SIM, jax.random.PRNGKey(2))
-        _, rec_one = m.simulate_fused(ARM, cfg, SIM, ref, s0, steps,
-                                      eps_per_step=eps1)
-        L._FUSED_MAX_STEPS = 3           # force 3 chained launches
-        s0 = m.init_sim(cfg, SIM, jax.random.PRNGKey(2))
-        fin, rec_chunk = m.simulate_fused(ARM, cfg, SIM, ref, s0, steps,
-                                          eps_per_step=eps1)
-        assert int(fin.step) == steps
-        # interpret-mode kernels re-lowered at different chunk shapes can
-        # differ by FMA-contraction ulps on CPU (bitwise chaining is a
-        # kernel-level property, asserted on hardware); discrete lanes exact
-        np.testing.assert_array_equal(np.asarray(rec_chunk.wp_idx),
-                                      np.asarray(rec_one.wp_idx))
-        np.testing.assert_array_equal(np.asarray(rec_chunk.done),
-                                      np.asarray(rec_one.done))
-        for f in rec_one._fields:
-            np.testing.assert_allclose(
-                np.asarray(getattr(rec_chunk, f)),
-                np.asarray(getattr(rec_one, f)), atol=1e-5, err_msg=f)
+def test_pallas_batch_matches_single(ref_path):
+    """simulate_batch (the batch as a grid axis of the kernel) equals the
+    single-scenario simulate per scenario."""
+    cfg = dataclasses.replace(MPPIConfig(), num_samples=100, horizon=6)
+    ref = jnp.asarray(ref_path[:400], F32)
+    b, steps = 3, 4
+    keys = jax.vmap(jax.random.PRNGKey)(jnp.arange(b))
+    q0 = (jnp.tile(jnp.asarray([SIM.q0], F32), (b, 1))
+          + 0.01 * jnp.arange(b, dtype=F32)[:, None])
+    states = m.init_sim_batch(cfg, SIM, keys, q0=q0, dtype=F32)
+    final, recb = m.simulate_batch(ARM, cfg, SIM, ref, states, steps,
+                                   backend="pallas")
+    assert recb.q.shape == (steps, b, 2) and recb.ess.shape == (steps, b)
+    for i in range(b):
+        si = jax.tree.map(lambda x: x[i], states)
+        fi, ri = m.simulate(ARM, cfg, SIM, ref, si, steps, backend="pallas")
+        np.testing.assert_allclose(np.asarray(recb.q[:, i]),
+                                   np.asarray(ri.q), atol=1e-5)
+        np.testing.assert_array_equal(np.asarray(recb.wp_idx[:, i]),
+                                      np.asarray(ri.wp_idx))
+        assert int(final.mppi.wp_idx[i]) == int(fi.mppi.wp_idx)
 
-        # batched variant
-        B = 2
-        epsb = (rng.normal(size=(B, steps, 128, 8, 2))
-                * np.sqrt(20.0)).astype(np.float32)
-        keys = jax.vmap(jax.random.PRNGKey)(jnp.arange(B))
-        L._FUSED_MAX_STEPS = orig_max
-        sb = m.init_sim_batch(cfg, SIM, keys)
-        _, recb_one = m.simulate_fused_batch(ARM, cfg, SIM, ref, sb, steps,
-                                             eps_per_step=epsb)
-        L._FUSED_MAX_STEPS = 4           # budget/group -> 2-step chunks
-        sb = m.init_sim_batch(cfg, SIM, keys)
-        finb, recb_chunk = m.simulate_fused_batch(ARM, cfg, SIM, ref, sb,
-                                                  steps, eps_per_step=epsb)
-        assert np.all(np.asarray(finb.step) == steps)
-        np.testing.assert_array_equal(np.asarray(recb_chunk.wp_idx),
-                                      np.asarray(recb_one.wp_idx))
-        for f in recb_one._fields:
-            np.testing.assert_allclose(
-                np.asarray(getattr(recb_chunk, f)),
-                np.asarray(getattr(recb_one, f)), atol=1e-5, err_msg=f)
-    finally:
-        L._FUSED_MAX_STEPS = orig_max
-        ps.pallas_sim_run = orig_run
-        ps.pallas_sim_run_batched = orig_runb
+
+def test_pallas_batch_matches_xla_batch(ref_path):
+    """simulate_batch: pallas vs xla on the same keys."""
+    cfg = dataclasses.replace(MPPIConfig(), num_samples=64, horizon=6)
+    ref = jnp.asarray(ref_path[:400], F32)
+    keys = jax.vmap(jax.random.PRNGKey)(jnp.arange(4))
+    states = m.init_sim_batch(cfg, SIM, keys, dtype=F32)
+    _, ra = m.simulate_batch(ARM, cfg, SIM, ref, states, 3, backend="xla")
+    _, rb = m.simulate_batch(ARM, cfg, SIM, ref, states, 3, backend="pallas")
+    np.testing.assert_allclose(np.asarray(rb.q), np.asarray(ra.q), atol=1e-4)
+    np.testing.assert_array_equal(np.asarray(rb.wp_idx),
+                                  np.asarray(ra.wp_idx))

@@ -6,16 +6,16 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from mppi_robotarm_tpu.config import ArmParams, MPPIConfig, SimConfig
-from mppi_robotarm_tpu.sim.loop import (
+from mppi_robotarm.config import ArmParams, MPPIConfig, SimConfig
+from mppi_robotarm.sim.loop import (
     init_sim,
     init_sim_batch,
     sim_step,
     simulate,
     simulate_batch,
 )
-from mppi_robotarm_tpu.sim.pathgen import generate_circle_path, save_path_file
-from mppi_robotarm_tpu.sim.paths import load_ref_path
+from mppi_robotarm.sim.pathgen import generate_circle_path, save_path_file
+from mppi_robotarm.sim.paths import load_ref_path
 
 ARM = ArmParams()
 

@@ -21,11 +21,11 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from mppi_robotarm_tpu.config import ArmParams, MPPIConfig, SimConfig
-from mppi_robotarm_tpu.models.arm import fk_ee
-from mppi_robotarm_tpu.mppi.solver import init_state, solve
-from mppi_robotarm_tpu.sim.loop import plant_step
-from mppi_robotarm_tpu.utils.metrics import tracking_errors
+from mppi_robotarm.config import ArmParams, MPPIConfig, SimConfig
+from mppi_robotarm.models.arm import fk_ee
+from mppi_robotarm.mppi.solver import init_state, solve
+from mppi_robotarm.sim.loop import plant_step
+from mppi_robotarm.utils.metrics import tracking_errors
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "data",
                       "reference_golden_run.npz")
@@ -120,15 +120,15 @@ def test_f32_production_tracking_distribution(golden, ref_path):
     The bitwise/f64 replay above covers the injected-noise seam only; this
     runs the actual production configuration — threefry noise, float32,
     scan-compiled `simulate` (PARITY_RUN.md run C) — for 2 seeds x 500
-    steps and gates the lag-free on-path EE error.  Calibration: the
-    on-chip 8-seed sweep of this exact configuration (round 3,
-    tools/tpu_seed_sweep.py 8 1500 xla) spans 10.97-30.69 mm on-path mean
-    over the full 1500-step run; a healthy 500-step prefix sits well under
+    steps and gates the lag-free on-path EE error.  Calibration: an
+    earlier 8-seed sweep of this exact configuration (PARITY.md, "EE
+    tracking error parity") spans 10.97-30.69 mm on-path mean over the
+    full 1500-step run; a healthy 500-step prefix sits well under
     45 mm, while a semantics regression (wrong waypoint freeze, broken
     warm start, mis-scaled noise) blows through it.
     """
     import jax
-    from mppi_robotarm_tpu.sim.loop import init_sim, simulate
+    from mppi_robotarm.sim.loop import init_sim, simulate
 
     arm, cfg, sim = ArmParams(), MPPIConfig(), SimConfig()
     rp = jnp.asarray(ref_path, jnp.float32)

@@ -2,20 +2,22 @@
 
 Verifies that sharding the K sample axis (psum/pmin collectives) and the
 scenario batch axis is numerically transparent: the sharded solve must equal
-the single-chip solve on the same inputs.
+the single-device solve on the same inputs.
 """
 
 import dataclasses
+import os
+import sys
 
 import numpy as np
 import jax
 import jax.numpy as jnp
 import pytest
 
-from mppi_robotarm_tpu.config import ArmParams, MPPIConfig
-from mppi_robotarm_tpu.mppi.solver import MPPIState, init_state, solve
-from mppi_robotarm_tpu.parallel.mesh import make_mesh
-from mppi_robotarm_tpu.parallel.sharded import (
+from mppi_robotarm.config import ArmParams, MPPIConfig
+from mppi_robotarm.mppi.solver import MPPIState, solve
+from mppi_robotarm.parallel.mesh import make_mesh
+from mppi_robotarm.parallel.sharded import (
     make_sharded_sim_step,
     make_sharded_solve,
 )
@@ -23,9 +25,14 @@ from mppi_robotarm_tpu.parallel.sharded import (
 ARM = ArmParams()
 X0 = np.array([1.152198236517471885, -1.266101672070702344, 0.0, 0.0])
 
-pytestmark = pytest.mark.skipif(
-    len(jax.devices()) < 8, reason="needs 8 virtual CPU devices"
-)
+_REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.fixture(autouse=True)
+def _eight_devices():
+    """conftest.py gives 8 virtual CPU devices; decided here, at run time."""
+    if len(jax.devices()) < 8:
+        pytest.skip("needs 8 virtual CPU devices")
 
 
 def _batch_inputs(cfg, batch, rng, dtype):
@@ -88,7 +95,7 @@ def test_sharded_sim_step_runs_and_is_finite(ref_path):
     finite on a 4x2 mesh."""
     mesh = make_mesh(data=4, samples=2)
     cfg = dataclasses.replace(MPPIConfig(), num_samples=16, horizon=6)
-    from mppi_robotarm_tpu.config import SimConfig
+    from mppi_robotarm.config import SimConfig
     sim = SimConfig()
     step_fn = make_sharded_sim_step(ARM, cfg, sim, mesh)
     batch = 8
@@ -108,16 +115,14 @@ def test_sharded_sim_step_runs_and_is_finite(ref_path):
 
 
 def test_dryrun_multichip_entrypoint():
-    """The driver-facing dry run compiles and executes on 8 CPU devices."""
-    import sys
-    sys.path.insert(0, "/root/repo")
+    """The CPU-mesh dry run compiles and executes on 8 CPU devices."""
+    sys.path.insert(0, _REPO)
     import __graft_entry__ as ge
     ge.dryrun_multichip(8)
 
 
 def test_entry_compiles():
-    import sys
-    sys.path.insert(0, "/root/repo")
+    sys.path.insert(0, _REPO)
     import __graft_entry__ as ge
     fn, args = ge.entry()
     out = jax.jit(fn)(*args)
@@ -127,18 +132,17 @@ def test_entry_compiles():
 
 @pytest.mark.parametrize("mesh_shape", [(2, 4), (1, 8), (4, 2)])
 def test_sharded_pallas_matches_single_chip(ref_path, rng, mesh_shape):
-    """Fused kernel per shard + two-level online-softmax combine over the
-    'samples' axis == the single-chip XLA solve (f32)."""
+    """The rollout kernel per shard + the three collectives over 'samples'
+    == the single-device XLA solve (f32)."""
     data_ax, samples_ax = mesh_shape
     mesh = make_mesh(data=data_ax, samples=samples_ax)
-    cfg = dataclasses.replace(MPPIConfig(), num_samples=128 * samples_ax,
-                              horizon=6)
+    cfg = dataclasses.replace(MPPIConfig(), num_samples=64 * samples_ax,
+                              horizon=6, exploration=0.25)
     batch = data_ax
     obs, u_prev, wp_idx, eps = _batch_inputs(cfg, batch, rng, jnp.float32)
     ref = jnp.asarray(ref_path, jnp.float32)
 
-    sharded = make_sharded_solve(ARM, cfg, mesh, backend="pallas",
-                                 interpret=True)
+    sharded = make_sharded_solve(ARM, cfg, mesh, backend="pallas")
     u0_s, useq_s, unext_s, wp_s, end_s, s_s, w_s = sharded(
         ref, obs, u_prev, wp_idx, eps)
 
@@ -160,9 +164,9 @@ def test_non_divisible_k_raises(ref_path):
     """K not divisible by the 'samples' axis must raise, not silently drop
     samples (round-1 W3)."""
     import dataclasses as dc
-    from mppi_robotarm_tpu.config import MPPIConfig, SimConfig
-    from mppi_robotarm_tpu.parallel.mesh import make_mesh
-    from mppi_robotarm_tpu.parallel.sharded import (
+    from mppi_robotarm.config import MPPIConfig, SimConfig
+    from mppi_robotarm.parallel.mesh import make_mesh
+    from mppi_robotarm.parallel.sharded import (
         make_sharded_sim_step, make_sharded_solve)
     mesh = make_mesh(data=1, samples=8)
     bad = dc.replace(MPPIConfig(), num_samples=100)  # 100 % 8 != 0
@@ -172,17 +176,49 @@ def test_non_divisible_k_raises(ref_path):
         make_sharded_sim_step(ARM, bad, SimConfig(), mesh)
 
 
+@pytest.mark.parametrize("backend", ["xla", "pallas"])
+def test_sharded_sim_step_outputs_span_the_mesh(ref_path, backend):
+    """Every output is laid out over all 8 devices along 'data' — nothing
+    silently gathers onto device 0."""
+    from mppi_robotarm.config import SimConfig
+    mesh = make_mesh(data=8, samples=1)
+    cfg = dataclasses.replace(MPPIConfig(), num_samples=16, horizon=4)
+    step_fn = make_sharded_sim_step(ARM, cfg, SimConfig(), mesh,
+                                    backend=backend)
+    batch = 16
+    q = jnp.tile(jnp.asarray([X0[:2]], jnp.float32), (batch, 1))
+    u_prev = jnp.tile(jnp.asarray(cfg.warm_start, jnp.float32),
+                      (batch, cfg.horizon, 1))
+    keys = jax.random.key_data(
+        jax.vmap(jax.random.PRNGKey)(jnp.arange(batch))).astype(jnp.uint32)
+    outs = step_fn(jnp.asarray(ref_path, jnp.float32), q,
+                   jnp.zeros((batch, 2), jnp.float32), u_prev,
+                   jnp.zeros((batch,), jnp.int32), keys)
+    for o in outs:
+        assert len(o.sharding.device_set) == 8
+        assert len(o.addressable_shards) == 8
+
+
+def test_unknown_sharded_backend_raises():
+    from mppi_robotarm.config import SimConfig
+    mesh = make_mesh(data=8, samples=1)
+    cfg = dataclasses.replace(MPPIConfig(), num_samples=16, horizon=4)
+    with pytest.raises(ValueError, match="unknown backend"):
+        make_sharded_solve(ARM, cfg, mesh, backend="pallas-fused")
+    with pytest.raises(ValueError, match="unknown backend"):
+        make_sharded_sim_step(ARM, cfg, SimConfig(), mesh, backend="mosaic")
+
+
 def test_sharded_sim_step_pallas_matches_xla(ref_path):
-    """The production sharded closed-loop step with the fused kernel
-    (backend='pallas', threefry noise, two-level online-softmax combine)
-    tracks the XLA path step-for-step over 5 steps on a 2x4 mesh."""
-    from mppi_robotarm_tpu.config import SimConfig
+    """The sharded closed-loop step with the rollout kernel per shard
+    (backend='pallas') tracks the XLA path step-for-step over 5 steps on a
+    2x4 mesh."""
+    from mppi_robotarm.config import SimConfig
     mesh = make_mesh(data=2, samples=4)
     cfg = dataclasses.replace(MPPIConfig(), num_samples=32, horizon=6)
     sim = SimConfig()
     f_xla = make_sharded_sim_step(ARM, cfg, sim, mesh)
-    f_pal = make_sharded_sim_step(ARM, cfg, sim, mesh, backend="pallas",
-                                  noise="threefry", interpret=True)
+    f_pal = make_sharded_sim_step(ARM, cfg, sim, mesh, backend="pallas")
     batch = 4
     ref = jnp.asarray(ref_path, jnp.float32)
     q = jnp.tile(jnp.asarray([X0[:2]], jnp.float32), (batch, 1))
@@ -216,7 +252,7 @@ def test_sharded_sim_step_pallas_matches_xla(ref_path):
 def test_initialize_multihost_single_process_noop():
     """On a single-process run the multihost bring-up must be a harmless
     no-op (the pod path auto-detects from the environment)."""
-    from mppi_robotarm_tpu.parallel.mesh import initialize_multihost
+    from mppi_robotarm.parallel.mesh import initialize_multihost
     initialize_multihost()          # must not raise
     initialize_multihost()          # idempotent
 
@@ -224,7 +260,7 @@ def test_initialize_multihost_single_process_noop():
 def test_detect_multihost_env():
     """The pod branch's env-var parsing, exercised with mocked environments
     (round-2 W6 — no cluster needed to logic-test the bring-up)."""
-    from mppi_robotarm_tpu.parallel.mesh import detect_multihost_env
+    from mppi_robotarm.parallel.mesh import detect_multihost_env
 
     # nothing set -> all None (single-process default)
     assert detect_multihost_env({}) == (None, None, None)
@@ -260,120 +296,3 @@ def test_detect_multihost_env():
             "JAX_COORDINATOR_ADDRESS": "h0:99",
             "JAX_NUM_PROCESSES": "4",
         })
-
-
-def test_sharded_fleet_matches_unsharded(ref_path):
-    """make_sharded_fleet ('data'-axis whole-loop fleet, stacked kernel per
-    shard) is bitwise-equal to the unsharded batched kernel."""
-    from mppi_robotarm_tpu.config import SimConfig
-    from mppi_robotarm_tpu.ops.pallas_sim import pallas_sim_run_batched
-    from mppi_robotarm_tpu.parallel.sharded import make_sharded_fleet
-
-    cfg = dataclasses.replace(MPPIConfig(), num_samples=128, horizon=6)
-    sim = SimConfig()
-    mesh = make_mesh(samples=1)                 # data=8
-    B, steps = 16, 4
-    rng = np.random.default_rng(7)
-    q0 = jnp.asarray(np.tile(X0[:2], (B, 1))
-                     + rng.normal(scale=0.01, size=(B, 2)), jnp.float32)
-    dq0 = jnp.zeros((B, 2), jnp.float32)
-    up = jnp.tile(jnp.asarray(cfg.warm_start, jnp.float32), (B, 6, 1))
-    wp0 = jnp.zeros(B, jnp.int32)
-    seeds = jnp.arange(B, dtype=jnp.int32)
-    step0 = jnp.zeros(B, jnp.int32)
-    ref = jnp.asarray(ref_path[:400], jnp.float32)
-
-    eps = jnp.asarray(rng.normal(size=(B, steps, 128, 6, 2))
-                      * np.sqrt(20.0), jnp.float32)
-    fleet = make_sharded_fleet(ARM, cfg, sim, mesh, steps, interpret=True)
-    rec_s, ufin_s = fleet(ref, q0, dq0, up, wp0, seeds, step0, eps=eps)
-
-    rec_u, ufin_u = pallas_sim_run_batched(
-        ARM, cfg, sim, ref, q0, dq0, up, wp0, seeds, steps, eps=eps,
-        interpret=True, unroll_t=True, step0=step0, group=2)
-    # On hardware the kernel is identical either way; in interpret mode the
-    # kernel body is re-lowered to XLA ops whose FMA contraction differs
-    # inside vs outside shard_map, so float lanes agree to ulp-level only.
-    rs, ru = np.asarray(rec_s), np.asarray(rec_u)
-    np.testing.assert_allclose(rs, ru, atol=2e-3)
-    np.testing.assert_array_equal(rs[..., 6:8], ru[..., 6:8])  # wp, done
-    np.testing.assert_allclose(np.asarray(ufin_s), np.asarray(ufin_u),
-                               atol=2e-3)
-
-    with pytest.raises(ValueError, match="data"):
-        fleet(ref, q0[:6], dq0[:6], up[:6], wp0[:6], seeds[:6], step0[:6],
-              eps=eps[:6])
-
-
-def test_sharded_fleet_chunked_matches_single(ref_path, monkeypatch):
-    """A fleet run past the per-launch VMEM record budget is transparently
-    chained and equals the single-launch run (round-2 advisor finding: the
-    fleet path used to bypass sim.loop's auto-chunking)."""
-    from mppi_robotarm_tpu.config import SimConfig
-    import mppi_robotarm_tpu.sim.loop as loop_mod
-    from mppi_robotarm_tpu.parallel.sharded import make_sharded_fleet
-
-    cfg = dataclasses.replace(MPPIConfig(), num_samples=128, horizon=6)
-    sim = SimConfig()
-    mesh = make_mesh(samples=1)                 # data=8
-    B, steps = 8, 7
-    rng = np.random.default_rng(11)
-    q0 = jnp.asarray(np.tile(X0[:2], (B, 1))
-                     + rng.normal(scale=0.01, size=(B, 2)), jnp.float32)
-    dq0 = jnp.zeros((B, 2), jnp.float32)
-    up = jnp.tile(jnp.asarray(cfg.warm_start, jnp.float32), (B, 6, 1))
-    wp0 = jnp.zeros(B, jnp.int32)
-    seeds = jnp.arange(B, dtype=jnp.int32)
-    step0 = jnp.zeros(B, jnp.int32)
-    ref = jnp.asarray(ref_path[:400], jnp.float32)
-    eps = jnp.asarray(rng.normal(size=(B, steps, 128, 6, 2))
-                      * np.sqrt(20.0), jnp.float32)
-
-    fleet_one = make_sharded_fleet(ARM, cfg, sim, mesh, steps,
-                                   interpret=True)
-    rec_one, ufin_one = fleet_one(ref, q0, dq0, up, wp0, seeds, step0,
-                                  eps=eps)
-
-    # Force the budget down so the same run must chain (1 scenario/shard
-    # -> group 1 -> 3-step chunks: 3 + 3 + 1).
-    monkeypatch.setattr(loop_mod, "_FUSED_MAX_STEPS", 3)
-    fleet_chunked = make_sharded_fleet(ARM, cfg, sim, mesh, steps,
-                                       interpret=True)
-    rec_c, ufin_c = fleet_chunked(ref, q0, dq0, up, wp0, seeds, step0,
-                                  eps=eps)
-
-    assert rec_c.shape == rec_one.shape
-    np.testing.assert_array_equal(np.asarray(rec_c), np.asarray(rec_one))
-    np.testing.assert_array_equal(np.asarray(ufin_c), np.asarray(ufin_one))
-
-
-def test_pallas_elide_collectives_twin(ref_path, rng):
-    """The production (pallas) sharded path's measurement twin (round-3
-    VERDICT item 5): ``elide_collectives=True`` must build an otherwise-
-    identical program — bitwise-equal outputs on a 1-wide samples axis
-    (the collectives are degenerate there), diverging outputs once the
-    samples axis is real (proving the elided exchanges carried data)."""
-    cfg = dataclasses.replace(MPPIConfig(), num_samples=256, horizon=6)
-
-    # samples axis width 1: twin == production, bitwise
-    mesh1 = make_mesh(data=8, samples=1)
-    obs, u_prev, wp_idx, eps = _batch_inputs(cfg, 8, rng, jnp.float32)
-    ref = jnp.asarray(ref_path, jnp.float32)
-    a = make_sharded_solve(ARM, cfg, mesh1, backend="pallas",
-                           interpret=True)(ref, obs, u_prev, wp_idx, eps)
-    b = make_sharded_solve(ARM, cfg, mesh1, backend="pallas", interpret=True,
-                           elide_collectives=True)(ref, obs, u_prev, wp_idx,
-                                                   eps)
-    for x, y in zip(a, b):
-        np.testing.assert_array_equal(np.asarray(x), np.asarray(y))
-
-    # samples axis width 8: the collectives carry the cross-shard softmax —
-    # eliding them must change the result
-    mesh8 = make_mesh(data=1, samples=8)
-    obs, u_prev, wp_idx, eps = _batch_inputs(cfg, 1, rng, jnp.float32)
-    a = make_sharded_solve(ARM, cfg, mesh8, backend="pallas",
-                           interpret=True)(ref, obs, u_prev, wp_idx, eps)
-    b = make_sharded_solve(ARM, cfg, mesh8, backend="pallas", interpret=True,
-                           elide_collectives=True)(ref, obs, u_prev, wp_idx,
-                                                   eps)
-    assert not np.allclose(np.asarray(a[1]), np.asarray(b[1]))

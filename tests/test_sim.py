@@ -4,9 +4,9 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from mppi_robotarm_tpu.config import ArmParams, MPPIConfig, SimConfig
-from mppi_robotarm_tpu.ops.noise import sample_epsilon, sigma_cholesky
-from mppi_robotarm_tpu.sim.loop import init_sim, simulate, simulate_python
+from mppi_robotarm.config import ArmParams, MPPIConfig, SimConfig
+from mppi_robotarm.ops.noise import sample_epsilon, sigma_cholesky
+from mppi_robotarm.sim.loop import init_sim, simulate, simulate_python
 from oracle import OracleMPPI, oracle_closed_loop
 
 ARM = ArmParams()
@@ -99,7 +99,7 @@ def test_ref_path_from_joint_log():
     single solve can track it (BASELINE config 1)."""
     import os
     import dataclasses
-    from mppi_robotarm_tpu.sim.paths import (load_joint_log,
+    from mppi_robotarm.sim.paths import (load_joint_log,
                                              ref_path_from_joint_log)
     src = "/root/reference/trajectory.txt"
     if os.path.exists(src):
@@ -113,7 +113,7 @@ def test_ref_path_from_joint_log():
     assert ref.shape == (log.shape[0], 4)
     np.testing.assert_allclose(ref[:, 0], log[:, 2], rtol=1e-12)
 
-    from mppi_robotarm_tpu.mppi.solver import init_state, solve
+    from mppi_robotarm.mppi.solver import init_state, solve
     cfg = dataclasses.replace(CFG, num_samples=256, horizon=30)
     x0 = jnp.asarray([log[0, 0], log[0, 1], 0.0, 0.0])
     eps = np.random.default_rng(5).normal(
@@ -197,7 +197,7 @@ def test_chunked_run_matches_full(ref_path):
 def test_chunked_batch_matches_full(ref_path):
     """Scenario-batched chunked runs stay step-aligned per scenario too."""
     import dataclasses as dc
-    from mppi_robotarm_tpu.sim.loop import init_sim_batch, simulate_batch
+    from mppi_robotarm.sim.loop import init_sim_batch, simulate_batch
 
     cfg = dc.replace(MPPIConfig(), num_samples=64, horizon=8)
     ref_j = jnp.asarray(ref_path, jnp.float32)
@@ -237,7 +237,7 @@ def test_xydq_alternate_path_closed_loop():
     src = "/root/reference/xydq.txt"
     if not os.path.exists(src):
         pytest.skip("reference xydq.txt not mounted")
-    from mppi_robotarm_tpu.sim.paths import load_ref_path
+    from mppi_robotarm.sim.paths import load_ref_path
 
     ref = load_ref_path(src, dtype=np.float64)
     assert ref.shape == (2000, 4)
@@ -267,17 +267,17 @@ def test_xydq_alternate_path_closed_loop():
 def test_high_accuracy_preset_runs():
     """The round-4 accuracy preset (delta_t matched to the plant, Q2
     relaxed) is a valid configuration and its closed loop runs; its
-    measured on-chip quality (6.1 mm vs 12.6 mm at the reference's
+    measured quality (6.1 mm vs 12.6 mm at the reference's
     delta_t=0.006, K=1024/H=50) is documented in docs/PARITY_RUN.md."""
     import dataclasses
-    from mppi_robotarm_tpu.config import high_accuracy_preset
+    from mppi_robotarm.config import high_accuracy_preset
 
     arm, cfg, sim = high_accuracy_preset()
     assert (cfg.delta_t, cfg.horizon, cfg.num_samples) == (0.003, 50, 1024)
     cfg.validate()
     # tiny-shape smoke of the full loop under this delta_t
     cfg = dataclasses.replace(cfg, num_samples=32, horizon=8)
-    from mppi_robotarm_tpu.sim.paths import synth_circle_path
+    from mppi_robotarm.sim.paths import synth_circle_path
     ref = jnp.asarray(synth_circle_path(300), jnp.float64)
     s0 = init_sim(cfg, sim, jax.random.PRNGKey(0), dtype=jnp.float64)
     _, rec = simulate(arm, cfg, sim, ref, s0, 10)

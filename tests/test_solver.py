@@ -6,8 +6,8 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from mppi_robotarm_tpu.config import ArmParams, MPPIConfig
-from mppi_robotarm_tpu.mppi.solver import MPPIState, init_state, solve
+from mppi_robotarm.config import ArmParams, MPPIConfig
+from mppi_robotarm.mppi.solver import MPPIState, init_state, solve
 from oracle import OracleMPPI
 
 ARM = ArmParams()
@@ -107,8 +107,8 @@ def test_determinism_same_key(ref_path):
 
 
 def test_f32_accuracy_within_gate(ref_path, rng):
-    """fp32 (TPU-realistic) vs float64 oracle stays within the 1e-3 gate
-    (BASELINE.json control-parity tolerance)."""
+    """fp32 (the accelerator's precision) vs float64 oracle stays within
+    the 1e-3 gate (BASELINE.json control-parity tolerance)."""
     eps = _eps(rng, CFG.num_samples, CFG.horizon)
     oracle = OracleMPPI(ref_path)
     u0_exp, useq_exp, _, _ = oracle.solve(X0, eps)

@@ -7,10 +7,10 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from mppi_robotarm_tpu.config import ArmParams, MPPIConfig, SimConfig
-from mppi_robotarm_tpu.sim.loop import init_sim, simulate
-from mppi_robotarm_tpu.utils.checkpoint import load_checkpoint, save_checkpoint
-from mppi_robotarm_tpu.utils.metrics import (
+from mppi_robotarm.config import ArmParams, MPPIConfig, SimConfig
+from mppi_robotarm.sim.loop import init_sim, simulate
+from mppi_robotarm.utils.checkpoint import load_checkpoint, save_checkpoint
+from mppi_robotarm.utils.metrics import (
     MetricsLogger,
     nan_guard,
     solve_metrics,
@@ -79,14 +79,14 @@ def test_plotting_figures(ref_path):
     ref = jnp.asarray(ref_path)
     s0 = init_sim(CFG, SIM, jax.random.PRNGKey(0), dtype=jnp.float64)
     _, rec = simulate(ARM, CFG, SIM, ref, s0, 5)
-    from mppi_robotarm_tpu.utils.plotting import (
+    from mppi_robotarm.utils.plotting import (
         plot_arm_schematic, plot_results, plot_sampled_trajectories)
     fig1, fig2 = plot_results(rec, ref_path)
     assert len(fig1.axes) == 4 and len(fig2.axes) == 2
     fig3 = plot_arm_schematic()
     assert fig3.axes
     # sampled-trajectory render from real viz rollouts
-    from mppi_robotarm_tpu.mppi.solver import init_state, solve, viz_rollouts
+    from mppi_robotarm.mppi.solver import init_state, solve, viz_rollouts
     st = init_state(CFG, dtype=jnp.float64)
     obs = jnp.asarray([1.1522, -1.2661, 0.0, 0.0], jnp.float64)
     res = solve(ARM, CFG, ref, obs, st, key=jax.random.PRNGKey(1))
@@ -101,7 +101,7 @@ def test_plotting_figures(ref_path):
 
 def test_viz_rollout_q4_offbyone(ref_path):
     """Quirk Q4: the viz re-rollout applies u rolled by one (last-first)."""
-    from mppi_robotarm_tpu.ops.rollout import rollout_trajectory
+    from mppi_robotarm.ops.rollout import rollout_trajectory
     from oracle import oracle_step
     u = np.arange(12, dtype=np.float64).reshape(6, 2)
     x0 = np.array([1.0, -1.0, 0.1, 0.2])
@@ -116,7 +116,7 @@ def test_viz_rollout_q4_offbyone(ref_path):
 
 def test_cli_end_to_end(ref_path, tmp_path):
     """The CLI driver runs a short tracking sim, writes records + figures."""
-    from mppi_robotarm_tpu.cli import main
+    from mppi_robotarm.cli import main
     out = os.path.join(tmp_path, "out")
     ckpt = os.path.join(tmp_path, "ck.npz")
     rc = main(["--steps", "6", "--samples", "16", "--horizon", "8",
@@ -136,7 +136,7 @@ def test_cli_end_to_end(ref_path, tmp_path):
 
 
 def test_cli_checkpoint_every(tmp_path):
-    from mppi_robotarm_tpu.cli import main
+    from mppi_robotarm.cli import main
     ckpt = os.path.join(tmp_path, "p.npz")
     rc = main(["--steps", "9", "--samples", "8", "--horizon", "6",
                "--checkpoint", ckpt, "--checkpoint-every", "3"])
@@ -150,7 +150,7 @@ def test_orbax_checkpoint_roundtrip(ref_path, tmp_path):
     bitwise, same as the .npz path (SURVEY.md §5.4)."""
     import pytest
     pytest.importorskip("orbax.checkpoint")
-    from mppi_robotarm_tpu.utils.checkpoint import (load_checkpoint_orbax,
+    from mppi_robotarm.utils.checkpoint import (load_checkpoint_orbax,
                                                     save_checkpoint_orbax)
     state = init_sim(CFG, SIM, jax.random.PRNGKey(3))
     path = str(tmp_path / "orbax_ckpt")
@@ -173,7 +173,7 @@ def test_plot_results_short_ref_path(ref_path):
     ref = jnp.asarray(ref_path)
     s0 = init_sim(CFG, SIM, jax.random.PRNGKey(0), dtype=jnp.float64)
     _, rec = simulate(ARM, CFG, SIM, ref, s0, 8)
-    from mppi_robotarm_tpu.utils.plotting import plot_results
+    from mppi_robotarm.utils.plotting import plot_results
     short = np.asarray(ref_path)[:5]          # 5 rows < 8 recorded steps
     fig1, fig2 = plot_results(rec, short)
     assert len(fig1.axes) == 4 and len(fig2.axes) == 2

@@ -3,7 +3,7 @@
 import numpy as np
 import jax.numpy as jnp
 
-from mppi_robotarm_tpu.ops.waypoint import (
+from mppi_robotarm.ops.waypoint import (
     nearest_in_window,
     slice_window,
     update_waypoint_index,
